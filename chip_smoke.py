@@ -14,15 +14,31 @@ Phases, each timed; any failure raises (exit code != 0, no result line):
              plain times from CUDA events
   4 world    the fc_aln benchmark world (seed 123, 250k pairs, ~379k
              signal reads) in a temporary directory
-  5 fc_aln   the port's CLI entry point on the whole world at -b 8192:
-             pass 0 warms up, passes 1-3 are timed (each printed, the
-             median is the result); launch counters reset just before
-             pass 1 and are read after pass 3
-  6 parity   first 16,384 reads: --device cpu (plain kernels) and cuda give
-             identical BAM records; first 1,024 reads: the card engine's
-             alignments equal the NumPy host aligner's, field by field
-  7 checks   both kernels launched in the timed passes; host fallback <=
-             5% of the reads with a k-mer hit; no JAX module imported
+  5 fc_aln   the port's CLI entry point on the whole world at -b 8192 in
+             two engine configurations: stream depth 3 with device collect
+             (the defaults) and depth 1 with host collect; one warm-up pass
+             each, then three timed passes each, taken in turns (each
+             printed, the median is the result; phase timers, peak GPU
+             memory); the two give identical BAM records
+  6 syncs    one 8,192-read batch per configuration under
+             torch.cuda.set_sync_debug_mode("warn"): the stream syncs
+             PyTorch reports, beside the engine's own event waits
+  7 parity   first 16,384 reads: --device cpu (plain kernels) and cuda in
+             both configurations give identical BAM records; first 1,024
+             reads: the card engine's alignments equal the NumPy host
+             aligner's, field by field
+  8 overflow every read on target (world.build_overflow_world, 32,768
+             reads): the first batch overflows the default lane pool, the
+             engine widens and re-dispatches; final host fallback <= 5%
+             of the reads with a hit; cpu and cuda BAM records identical
+             on the first 16,384 reads
+  9 uniform  reads uniform over a genome (world.build_uniform_world,
+             24,576 reads at -b 2048): the compaction budget engages and
+             the BAM records equal an uncompacted run's
+ 10 checks   both kernels launched in every fc_aln path above (counters
+             reset just before each path and read just after); host
+             fallback <= 5% of the reads with a k-mer hit on the bench
+             world; no JAX module imported
 Prints a {"kernels": [...]} line, then the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
@@ -34,6 +50,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, REPO)
@@ -53,6 +70,12 @@ N_TIMED = 3          # timed fc_aln passes after the warm-up; median reported
 N_BAM_PARITY = 16_384
 N_HOST_PARITY = 1024
 MAX_FALLBACK = 0.05
+# (name, EngineConfig fields) of the timed fc_aln configurations
+CONFIGS = (("depth3_device_collect", dict(stream_depth=3, collect="auto")),
+           ("depth1_host_collect", dict(stream_depth=1, collect="host")))
+N_OVERFLOW = 32_768
+N_UNIFORM_PAIRS = 12_288
+UNIFORM_BATCH = 2048
 
 
 def log(msg):
@@ -259,6 +282,198 @@ def host_parity(eng, seqs, oris):
     return n_with
 
 
+def fc_aln(w, fq, out, device, batch=BATCH, **cfg):
+    """The port's fc_aln CLI entry point on a world; returns the engine."""
+    from pansvr_tpu_torch.align.engine import EngineConfig
+    from pansvr_tpu_torch.cli.main import parse_args, run_fc_aln
+
+    return run_fc_aln(parse_args([
+        "fc_aln", w["index"], fq, w["header"], "-o", out, "-r", w["status"],
+        "-b", str(batch), "--device", device]), config=EngineConfig(**cfg))
+
+
+def drop_tuning(w):
+    """Remove the engine_tune.json an earlier run left in a world's index."""
+    path = os.path.join(w["index"], "engine_tune.json")
+    if os.path.exists(path):
+        os.remove(path)
+
+
+def counted(launches, name, fn):
+    """Run fn with the kernel launch counters set to 0 just before and
+    read just after; the counts add up under launches[name]."""
+    from pansvr_tpu_torch.ops import extd2_cuda as ec
+
+    ec.reset_launches()
+    out = fn()
+    acc = launches.setdefault(name, dict.fromkeys(ec.LAUNCHES, 0))
+    for k, v in ec.LAUNCHES.items():
+        acc[k] += v
+    return out
+
+
+def same_bam(a_path, b_path, what):
+    from pansvr_tpu_torch import world
+
+    a, b = world.bam_records(a_path), world.bam_records(b_path)
+    if not a or a != b:
+        raise AssertionError(f"{what}: BAM records differ ({len(a)} vs "
+                             f"{len(b)} records)")
+    return len(a)
+
+
+def bench_passes(w, tmp, dev, launches, n_reads, n_timed=N_TIMED):
+    """Phase 5: a warm-up pass per configuration, then n_timed passes of
+    each, taken in turns. Returns {config: summary}."""
+    import torch
+
+    cuda = dev.type == "cuda"
+    for name, cfg in CONFIGS:
+        fc_aln(w, w["signal"], os.path.join(tmp, f"warm_{name}.bam"),
+               dev.type, **cfg)
+    res = {name: dict(walls=[], peak_mib=0.0) for name, _ in CONFIGS}
+    for _ in range(n_timed):
+        for name, cfg in CONFIGS:
+            r = res[name]
+            out = os.path.join(tmp, f"{name}.bam")
+            if cuda:
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+            t = time.perf_counter()
+            eng = counted(launches, f"bench_{name}",
+                          lambda: fc_aln(w, w["signal"], out, dev.type, **cfg))
+            if cuda:
+                torch.cuda.synchronize()
+                r["peak_mib"] = max(r["peak_mib"],
+                                    torch.cuda.max_memory_allocated() / 2**20)
+            r["walls"].append(time.perf_counter() - t)
+            r["prof"] = {k: round(v, 4) for k, v in sorted(eng.prof.items())}
+            r["bam"] = out
+    n_pr = n_reads // 2 * 2
+    for name, r in res.items():
+        r["median_s"] = sorted(r["walls"])[len(r["walls"]) // 2]
+        r["reads_per_s"] = n_pr / r["median_s"]
+        log(f"fc_aln {name}: passes " + ", ".join(
+            f"{x:.3f} s = {n_pr / x:.1f} reads/s" for x in r["walls"])
+            + f"; median {r['reads_per_s']:.1f} reads/s; peak GPU memory "
+            f"{r['peak_mib']:.1f} MiB")
+        log(f"engine phases of the last {name} pass (s) and counts: "
+            f"{r['prof']}")
+    (a, ra), (b, rb) = res.items()
+    n = same_bam(ra["bam"], rb["bam"], f"fc_aln {a} vs {b}")
+    log(f"{a} and {b}: {n} BAM records identical")
+    return res
+
+
+def sync_counts(w, dev, n=BATCH):
+    """Phase 6: stream syncs PyTorch reports for one n-read batch per
+    configuration (after a warm-up batch), and the engine's event waits."""
+    import torch
+
+    from pansvr_tpu_torch import world
+    from pansvr_tpu_torch.align.engine import AlignEngine, EngineConfig
+
+    seqs, oris = world.read_batch(w["signal"], 2 * n)
+    idx = world.load_index(w["index"])
+    names = world.header_names(w["header"])
+    for name, cfg in CONFIGS:
+        eng = AlignEngine(idx, ori_chrom_names=names, device=dev,
+                          config=EngineConfig(**cfg))
+        eng.align_batch(seqs[:n], oris[:n])
+        waits0 = eng.prof["n_event_waits"]
+        with warnings.catch_warnings(record=True) as rec:
+            warnings.simplefilter("always")
+            if dev.type == "cuda":
+                torch.cuda.set_sync_debug_mode("warn")
+            try:
+                eng.align_batch(seqs[n : 2 * n], oris[n : 2 * n])
+            finally:
+                if dev.type == "cuda":
+                    torch.cuda.set_sync_debug_mode(0)
+        # (the mode's one-time "prototype feature" notice is not a sync)
+        msgs = [str(r.message) for r in rec
+                if "called a synchronizing" in str(r.message)]
+        waits = int(eng.prof["n_event_waits"] - waits0)
+        log(f"syncs {name}: {len(msgs)} synchronizing operations reported "
+            f"by torch.cuda.set_sync_debug_mode in one {n}-read batch, "
+            f"{waits} event waits"
+            + (f"; first: {msgs[0][:160]}" if msgs else ""))
+
+
+def overflow_phase(w, tmp, dev, launches, n_reads=N_OVERFLOW, batch=BATCH,
+                   n_head=N_BAM_PARITY):
+    """Phase 8: on-target world; widening + batch retry must fire and the
+    final host fallback stay <= MAX_FALLBACK of the reads with a hit."""
+    from pansvr_tpu_torch import world
+
+    ov = world.build_overflow_world(w, os.path.join(tmp, "overflow"),
+                                    n_reads=n_reads)
+    eng = counted(launches, "overflow", lambda: fc_aln(
+        ov, ov["signal"], os.path.join(tmp, "ovf.bam"), dev.type, batch))
+    p = eng.prof
+    hit = max(int(p["n_hit_reads"]), 1)
+    row = dict(reads=n_reads, widenings=int(p["n_widen"]),
+               retries=int(p["n_retry"]),
+               over_before_retry=int(p["n_retry_over"]),
+               fallback=int(p["n_fallback"]), hit_reads=hit,
+               final=dict(nf_mult=eng.cfg.nf_mult,
+                          mem_slots=eng.cfg.mem_slots,
+                          collect_mult=eng.cfg.collect_mult))
+    log(f"overflow world: {n_reads} on-target reads at -b {batch}: "
+        f"{row['widenings']} widenings, {row['retries']} batch retries "
+        f"(triggered by {row['over_before_retry']} reads over the budgets, "
+        f"{row['over_before_retry'] / max(row['retries'], 1) / batch:.1%} "
+        "of a retried batch on average); "
+        f"final host fallback {row['fallback']} of {hit} reads with a hit; "
+        f"budgets now {row['final']}")
+    if not (row["widenings"] and row["retries"]):
+        raise AssertionError("overflow world: no widening / batch retry")
+    if row["fallback"] > MAX_FALLBACK * hit:
+        raise AssertionError(f"overflow world: host fallback "
+                             f"{row['fallback']} > {MAX_FALLBACK:.0%} of {hit}")
+    head = os.path.join(tmp, "ovf_head.fq")
+    world.head_signal(ov["signal"], head, n_head)
+    bams = []
+    for device in ("cpu", dev.type):
+        drop_tuning(ov)
+        bams.append(os.path.join(tmp, f"ovf_head_{device}.bam"))
+        e = fc_aln(ov, head, bams[-1], device, batch)
+        if not e.prof["n_retry"]:
+            raise AssertionError(f"overflow head on {device}: no retry")
+    row["bam_records"] = same_bam(*bams, f"overflow world, first {n_head} "
+                                         "reads, cpu vs cuda")
+    log(f"overflow world, first {n_head} reads: {row['bam_records']} BAM "
+        "records identical between cpu and cuda (both widened)")
+
+
+def uniform_phase(w, tmp, dev, launches, n_pairs=N_UNIFORM_PAIRS,
+                  batch=UNIFORM_BATCH):
+    """Phase 9: uniform reads; compaction must engage and leave the BAM
+    records unchanged."""
+    from pansvr_tpu_torch import world
+
+    uw = world.build_uniform_world(w, os.path.join(tmp, "uniform"),
+                                   n_pairs=n_pairs)
+    on = os.path.join(tmp, "uni_on.bam")
+    off = os.path.join(tmp, "uni_off.bam")
+    eng = counted(launches, "uniform", lambda: fc_aln(
+        uw, uw["signal"], on, dev.type, batch))
+    drop_tuning(uw)
+    fc_aln(uw, uw["signal"], off, dev.type, batch, compact_div=1)
+    row = dict(reads=2 * n_pairs, batches=int(eng.prof["n_batches"]),
+               compacted_batches=int(eng.prof["n_compacted"]),
+               comp_cap=eng._comp_cap,
+               hit_reads=int(eng.prof["n_hit_reads"]))
+    if not (row["compacted_batches"] and row["comp_cap"]):
+        raise AssertionError(f"uniform world: compaction never engaged {row}")
+    row["bam_records"] = same_bam(on, off, "uniform world, compacted vs not")
+    log(f"uniform world: {row['reads']} reads at -b {batch}, "
+        f"{row['hit_reads']} with a hit; {row['compacted_batches']} of "
+        f"{row['batches']} batches compacted (budget {row['comp_cap']} rows "
+        f"of {2 * batch}); {row['bam_records']} BAM records identical to the "
+        "uncompacted run")
+
+
 def main():
     t_start = time.perf_counter()
     secs = {}
@@ -277,8 +492,6 @@ def main():
 
     from pansvr_tpu_torch import _build, world
     from pansvr_tpu_torch.align.engine import AlignEngine
-    from pansvr_tpu_torch.cli.main import parse_args, run_fc_aln
-    from pansvr_tpu_torch.ops import extd2_cuda as ec
     t = time.perf_counter()
     _build.load_kernels()
     secs["build"] = time.perf_counter() - t
@@ -289,6 +502,7 @@ def main():
     rows = kernel_parity(dev)
     secs["kernel_parity"] = time.perf_counter() - t
 
+    launches = {}
     with tempfile.TemporaryDirectory(prefix="pansvr_smoke_") as tmp:
         t = time.perf_counter()
         w = world.build_bench_world(os.path.join(tmp, "world"))
@@ -297,57 +511,34 @@ def main():
         log(f"world: {n_reads} signal reads, index {w['n_kmers']} k-mers / "
             f"{w['n_unitigs']} unitigs ({secs['world']:.1f} s)")
 
-        def fc_aln(fq, out, device, batch=BATCH):
-            return run_fc_aln(parse_args([
-                "fc_aln", w["index"], fq, w["header"], "-o", out,
-                "-r", w["status"], "-b", str(batch), "--device", device]))
+        t = time.perf_counter()
+        bench = bench_passes(w, tmp, dev, launches, n_reads)
+        secs["fc_aln"] = time.perf_counter() - t
+        main_prof = bench[CONFIGS[0][0]]["prof"]
+        rss_kb = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
+        log(f"kernel launches per path: {launches}; bench host fallback "
+            f"{int(main_prof['n_fallback'])} of {int(main_prof['n_hit_reads'])}"
+            f" reads with a k-mer hit (+{int(main_prof['n_oversize'])} "
+            f"oversize); peak host RSS {rss_kb / 2**10:.1f} MiB")
 
         t = time.perf_counter()
-        fc_aln(w["signal"], os.path.join(tmp, "warm.bam"), "cuda")
-        secs["fc_aln_warmup"] = time.perf_counter() - t
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        ec.reset_launches()
-        walls = []
-        for _ in range(N_TIMED):
-            t = time.perf_counter()
-            eng = fc_aln(w["signal"], os.path.join(tmp, "out.bam"), "cuda")
-            torch.cuda.synchronize()
-            walls.append(time.perf_counter() - t)
-        launches = dict(ec.LAUNCHES)
-        secs["fc_aln"] = sum(walls)
-        wall = sorted(walls)[len(walls) // 2]
-        n_pairs_reads = n_reads // 2 * 2
-        peak_gpu = torch.cuda.max_memory_allocated()
-        rss_kb = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
-        prof = {k: round(v, 4) for k, v in sorted(eng.prof.items())}
-        n_out = len(world.bam_records(os.path.join(tmp, "out.bam")))
-        log(f"fc_aln passes 1-{N_TIMED}: " + ", ".join(
-            f"{w_:.3f} s = {n_pairs_reads / w_:.1f} reads/s" for w_ in walls))
-        log(f"fc_aln median pass: {n_pairs_reads} reads in {wall:.3f} s = "
-            f"{n_pairs_reads / wall:.1f} reads/s on {card} (batch {BATCH}, "
-            f"{n_out} BAM records)")
-        log(f"engine phases of pass {N_TIMED} (s) and counts: {prof}")
-        log(f"kernel launches in passes 1-{N_TIMED}: {launches}; host fallback "
-            f"{int(eng.prof['n_fallback'])} of {int(eng.prof['n_hit_reads'])} "
-            f"reads with a k-mer hit (+{int(eng.prof['n_oversize'])} oversize)")
-        log(f"peak GPU memory allocated {peak_gpu / 2**20:.1f} MiB; peak host "
-            f"RSS {rss_kb / 2**10:.1f} MiB")
+        sync_counts(w, dev)
+        secs["syncs"] = time.perf_counter() - t
 
         t = time.perf_counter()
         fq16 = os.path.join(tmp, "head.fq")
         world.head_signal(w["signal"], fq16, N_BAM_PARITY)
-        fc_aln(fq16, os.path.join(tmp, "head_cpu.bam"), "cpu")
-        fc_aln(fq16, os.path.join(tmp, "head_gpu.bam"), "cuda")
-        a = world.bam_records(os.path.join(tmp, "head_cpu.bam"))
-        b = world.bam_records(os.path.join(tmp, "head_gpu.bam"))
-        if not a or a != b:
-            raise AssertionError(
-                f"BAM records differ between --device cpu ({len(a)}) and "
-                f"cuda ({len(b)}) on the first {N_BAM_PARITY} reads")
+        cpu_bam = os.path.join(tmp, "head_cpu.bam")
+        fc_aln(w, fq16, cpu_bam, "cpu")
+        for name, cfg in CONFIGS:
+            gpu_bam = os.path.join(tmp, f"head_{name}.bam")
+            fc_aln(w, fq16, gpu_bam, "cuda", **cfg)
+            n_rec = same_bam(cpu_bam, gpu_bam, f"first {N_BAM_PARITY} reads, "
+                             f"--device cpu vs cuda {name}")
         secs["parity_bam"] = time.perf_counter() - t
-        log(f"first {N_BAM_PARITY} reads: {len(a)} BAM records identical "
-            f"between the plain CPU path and the card ({secs['parity_bam']:.1f} s)")
+        log(f"first {N_BAM_PARITY} reads: {n_rec} BAM records identical "
+            f"between the plain CPU path and the card in both configurations "
+            f"({secs['parity_bam']:.1f} s)")
 
         t = time.perf_counter()
         seqs, oris = world.read_batch(w["signal"], N_HOST_PARITY)
@@ -359,14 +550,25 @@ def main():
         log(f"first {N_HOST_PARITY} reads: card engine == NumPy host aligner "
             f"({n_with} reads with alignments)")
 
-    # phase 7
-    for k in ("extd2_fwd", "extd2_tb"):
-        if launches[k] <= 0:
-            raise AssertionError(f"{k} was not launched on the main path")
-    hit = max(int(eng.prof["n_hit_reads"]), 1)
-    if eng.prof["n_fallback"] > MAX_FALLBACK * hit:
+        t = time.perf_counter()
+        overflow_phase(w, tmp, dev, launches)
+        secs["overflow"] = time.perf_counter() - t
+
+        t = time.perf_counter()
+        uniform_phase(w, tmp, dev, launches)
+        secs["uniform"] = time.perf_counter() - t
+
+    # phase 10
+    for path, counts in launches.items():
+        for k in ("extd2_fwd", "extd2_tb"):
+            if counts[k] <= 0:
+                raise AssertionError(f"{k} was not launched on path {path}")
+    total = {k: sum(c[k] for c in launches.values())
+             for k in ("extd2_fwd", "extd2_tb")}
+    hit = max(int(main_prof["n_hit_reads"]), 1)
+    if main_prof["n_fallback"] > MAX_FALLBACK * hit:
         raise AssertionError(
-            f"host fallback {int(eng.prof['n_fallback'])} > "
+            f"host fallback {int(main_prof['n_fallback'])} > "
             f"{MAX_FALLBACK:.0%} of {hit} reads with a hit")
     jax_mods = sorted(m for m, mod in list(sys.modules.items())
                       if m.split(".")[0] == "jax" and mod is not None)
@@ -381,13 +583,13 @@ def main():
         {"name": "extd2_fwd", "route": "cuda",
          "source": "pansvr_tpu_torch/csrc/extd2_fwd.cu",
          "replaces": "pansvr_tpu/ops/extd2_pallas.py:74",
-         "launches": launches["extd2_fwd"],
+         "launches": total["extd2_fwd"],
          "max_abs_err": max(r["fwd_err"] for r in rows),
          "ms": main_row["fwd_ms"], "plain_ms": main_row["fwd_plain_ms"]},
         {"name": "extd2_tb", "route": "cuda",
          "source": "pansvr_tpu_torch/csrc/extd2_tb.cu",
          "replaces": "pansvr_tpu/ops/extd2_pallas.py:484",
-         "launches": launches["extd2_tb"],
+         "launches": total["extd2_tb"],
          "max_abs_err": max(r["tb_err"] for r in rows),
          "ms": main_row["tb_ms"], "plain_ms": main_row["tb_plain_ms"]},
     ]}), flush=True)

@@ -1,32 +1,58 @@
 """Batched fc_aln realignment engine on one PyTorch device.
 
-Port of pansvr_tpu/align/engine.py along its host-collect path, per
+Port of pansvr_tpu/align/engine.py (its single-device pipeline), per
 batch of reads:
 
-  1. host:   2-bit encode fwd + rev, STR screen, packing (_prep_batch);
-  2. device: seeding front (ops.seeding.seed_reads_flat) + merge/expand;
-  3. device: SDP chaining + chain extraction (ops.chain), at a chain
-             width K bucketed to this batch's largest seed count;
-  4. host:   the C++ collect walk (native glue) plans every DP segment;
+  1. host:   2-bit encode fwd + rev, STR screen, packing (_prep_batch,
+             run in a worker thread);
+  2. device, enqueued at dispatch (_dispatch_front): seeding front
+             (ops.seeding.seed_reads_flat, with active-row compaction) +
+             merge/expand, SDP chaining at the speculative chain width K
+             (ops.chain), then either the chain extraction or the device
+             collect (ops.collect.select_and_paths); the results are
+             copied into pinned host tensors behind one CUDA event;
+  3. host:   _finish_front waits for that event, adapts K (re-chains at
+             full width on a miss), widens the lane budgets and
+             re-dispatches the batch on mass overflow, and takes the
+             exact host path for the rows still over a cap;
+  4. host:   the C++ collect walk (native glue) plans every DP segment,
+             from the device-collected paths or the chain tensors;
   5. device: DP fill from the resident read codes + packed reference,
              extd2 forward + traceback kernels (ops.extd2_cuda) in three
-             size classes;
+             size classes, results copied back behind one event;
   6. host:   C++ replay, ranking and (with native emit) PE pairing +
              BAM record encoding.
 
-Equality with pansvr_tpu.align.host_align.HostAligner is the contract;
-reads over the device caps (MEM lanes, seeds, chain width, read length)
-take that exact host path. The native glue library is required.
+align_stream keeps cfg.stream_depth fronts in flight and defers each
+batch's DP phase by one iteration; host prep runs one to two batches
+ahead in a worker thread. Only the main thread issues device work, and
+no step on the way reads a device value back except at the two event
+waits (sync_chain, sync_dp) and the rare K-miss re-chain.
 
-Not ported here (pansvr_tpu keeps them): device collect, active-row
-compaction, stream depth > 1, the speculative chain width, retier /
-widening / batch retry, engine_tune.json, the multi-chip mesh.
+The adaptive state (speculative K, compaction budget, lane budgets,
+collect budgets, retier window) takes the JAX engine's decisions on the
+same statistics; each batch carries its own shapes in its `pend`, so a
+widening made for batch N never changes how an in-flight batch N+1 is
+unpacked. Equality with pansvr_tpu.align.host_align.HostAligner is the
+contract; reads over the device caps (lane budgets, seeds, chain width,
+read length) take that exact host path. The native glue library is
+required.
+
+Not ported here: the multi-chip mesh (pansvr_tpu/parallel/mesh.py and
+the JAX engine's sharded front/chain/DP). The port as a whole still
+lacks, in order: the fc_sv contig DP on the card
+(pansvr_tpu/assembly/sv_call.py ContigDpBatcher), ops/onchip_check.py,
+and that mesh.
 """
 
 from __future__ import annotations
 
+import json
+import os
+import sys
 import time
-from collections import defaultdict
+from collections import defaultdict, deque
+from dataclasses import dataclass
 
 import numpy as np
 import torch
@@ -49,32 +75,75 @@ from pansvr_tpu.utils import dna
 from ..index.device import to_device
 from ..ops import extd2_cuda
 from ..ops.chain import chain_batch, chain_extract_batch
+from ..ops.collect import select_and_paths
 from ..ops.extd2 import Extd2Params, plan
-from ..ops.seeding import merge_expand_device3, pack_reads, seed_reads_flat
+from ..ops.seeding import (
+    BUDGET_OVERFLOW,
+    FLAT_OVERFLOW,
+    merge_expand_device3,
+    pack_reads,
+    seed_reads_flat,
+)
 
 _I32 = torch.int32
 _I64 = torch.int64
 
-
-# read-length classes: a batch runs in the smallest class that fits its
-# longest read; longer reads take the host aligner (1600 is the
-# reference's cap, read_realignment.hpp:322)
-READ_CLASSES = (160, 256, 512, 1024, 1600)
-MAX_SEEDS = 32       # S: expanded seeds per read and direction
-MEM_SLOTS = 32       # M: MEM lanes per row (overflow -> host path)
-NF_MULT = 10         # flat-front lane pool: NF_MULT lanes per row
-DP_CHUNK = 2048      # problems per DP launch in the small class
+# consecutive batches that must ask for the same compaction budget
+# before it applies
+_COMPACT_STABLE = 3
 
 
-def read_class(max_len: int) -> int | None:
-    return next((c for c in READ_CLASSES if max_len <= c), None)
+@dataclass
+class EngineConfig:
+    """Engine shapes and pipeline choices (the JAX EngineConfig's names
+    and defaults, without its TPU-only fields)."""
+    # read-length classes: a batch runs in the smallest class that fits
+    # its longest read; longer reads take the host aligner (1600 is the
+    # reference's cap, read_realignment.hpp:322)
+    read_classes: tuple = (160, 256, 512, 1024, 1600)
+    max_seeds: int = 32          # S: expanded seeds per read and direction
+    chain_bucket: int = 32       # K cap widened with M/S (tuning state)
+    mem_slots: int = 32          # M: MEM lanes per row (overflow -> host)
+    dp_q: int = 176              # DP size class of the 160 read class
+    dp_t: int = 256
+    nf_mult: int = 10            # flat-front lane pool: nf_mult lanes per
+                                 # row; rows past the pool take the host
+                                 # path (and a mass overflow widens it)
+    retier_threshold: float = 0.25  # fallback rate that doubles M/S/K
+    retier_max: int = 128        # cap of the widened shapes
+    dp_chunk: int = 2048         # problems per DP launch, small class
+                                 # (the middle class takes 1/4, the big 1/16)
+    compact_div: int = 4         # > 1 enables active-row compaction: the
+                                 # front's later stages and the chain run
+                                 # at a peak-active-rows x 1.4 budget
+    stream_depth: int = 3        # fronts in flight in align_stream
+                                 # (1 = one batch at a time)
+    collect: str = "auto"        # chain selection + path gather: "device"
+                                 # (ops.collect), "host" (C++ walk over
+                                 # the chain tensors) or "auto" (device
+                                 # when the glue has glue_collect_paths)
+    collect_mult: int = 1        # device-collect lane budgets: NC =
+                                 # mult x n_pad chains, NP = 2 x mult x
+                                 # n_pad path nodes (grows on overflow)
+    pipe_order: str = "late"     # stream_depth 1: the next batch's front
+                                 # is enqueued after this batch's DP
+                                 # ("late") or after its chain ("early")
 
+    @property
+    def max_read_len(self) -> int:
+        return max(self.read_classes)
 
-def dp_class(read_len_class: int) -> tuple[int, int]:
-    """(Qmax, Tmax) of the largest DP class of a read class: the read
-    class + 16 by + 96 (176 x 256 for the 160 class)."""
-    q = read_len_class + 16
-    return q, q + 80
+    def read_class(self, max_len: int) -> int | None:
+        return next((c for c in sorted(self.read_classes) if max_len <= c),
+                    None)
+
+    def dp_class(self, read_class: int) -> tuple[int, int]:
+        """(Qmax, Tmax) of the largest DP class of a read class: the read
+        class + 16 by + 96 (dp_q x dp_t for the 160 class)."""
+        if read_class <= 160:
+            return self.dp_q, self.dp_t
+        q = read_class + 16
+        return q, q + 80
 
 
 def resolve_device(device) -> torch.device:
@@ -144,6 +213,32 @@ def dp_chunk(qc, ql, tc, tl, params: Extd2Params, W: int):
     return ops, packed
 
 
+def chain_unpack(out: dict, B: int, K: int):
+    """Host chain tensors of the host-collect path, in full (B, ...) row
+    space: (s_fb, p16, pre, hits8, hscore). With a row map ("rid" in
+    `out`) the per-seed tensors cover the compacted rows only and are
+    scattered back here (empty rows: no hits, pre -1)."""
+    p32, p16, p8, hits8, hscore = (out[k] for k in
+                                   ("p32", "p16", "p8", "hits8", "hscore"))
+    if "rid" not in out:
+        return p32, p16, p8, hits8, hscore
+    rid = out["rid"]
+    ok = rid < B
+    r = rid[ok]
+    s_fb = np.zeros((B, K), np.int32)
+    s_fb[r] = p32[ok]
+    f16 = np.zeros((3, B, K), np.int16)
+    f16[:, r] = p16[:, ok]
+    pre = np.full((B, K), -1, np.int8)
+    pre[r] = p8[ok]
+    h8 = np.full((2, B, 6), -1, np.int8)  # hit_idx -1 = no hits
+    h8[1] = 0
+    h8[:, r] = hits8[:, ok]
+    hs = np.zeros((B, 6), np.int16)
+    hs[r] = hscore[ok]
+    return s_fb, f16, pre, h8, hs
+
+
 def _append_results(states, res, lo: int, hi: int) -> None:
     """Append the replayed results lo..hi (glue_replay arrays, sorted by
     read) to their reads' states as AlnResults."""
@@ -159,13 +254,18 @@ def _append_results(states, res, lo: int, hi: int) -> None:
                    for j in range(int(cig_n[x]))]))
 
 
+def _log(msg: str) -> None:
+    print(f"[pansvr engine] {msg}", file=sys.stderr)
+
+
 class AlignEngine:
     """Batched aligner on one device; produces SingleEndState lists
     compatible with pansvr_tpu.align.host_align.PEScorer, or encoded BAM
     record blobs with set_native_emit."""
 
-    def __init__(self, idx: RdBGIndex, ori_chrom_names: list[str] | None = None,
-                 device="cuda"):
+    def __init__(self, idx: RdBGIndex, params: AlignParams | None = None,
+                 config: EngineConfig | None = None,
+                 ori_chrom_names: list[str] | None = None, device="cuda"):
         self.device = resolve_device(device)
         self._glue_lib = native_glue.get_lib()
         if self._glue_lib is None or not all(
@@ -176,7 +276,8 @@ class AlignEngine:
                 "(native/build/libpansvr_glue.so with glue_req_meta and "
                 "glue_str_dup; build it with tools/build_native.sh)")
         self.idx = idx
-        self.p = AlignParams()
+        self.p = params or AlignParams()
+        self.cfg = config or EngineConfig()
         self.didx = to_device(idx, self.device)
         self.host = HostAligner(idx, self.p, ori_chrom_names=ori_chrom_names)
         self.sv_info = self.host.sv_info
@@ -193,12 +294,55 @@ class AlignEngine:
                                                   np.int64)
         self._sv_st_pos = np.array(
             [info.st_pos for info in self.sv_info], np.int32)
+        # speculative chain width: grows at once to the bucket of a
+        # batch's largest seed count, shrinks after 8 narrower batches
+        self._k_spec = 8
+        self._k_shrink_run = 0
+        # active-row compaction: once 4 batches are in the window, the
+        # budget is the window's peak active rows x 1.4 + 64, rounded to
+        # 512, applied after _COMPACT_STABLE equal asks and engaged only
+        # when it saves >= 12.5% of the rows; a budget overflow drops it
+        self._act_window: deque = deque(maxlen=8)
+        self._comp_cap = 0
+        self._comp_want = 0
+        self._comp_want_run = 0
+        self._tier_window: list[tuple[int, int]] = []  # (n_fallback, n)
+        self._fallback_warned = False
         # wall seconds per engine phase and event counts, across batches
         self.prof: dict[str, float] = defaultdict(float)
         self._emit_ctx = None
         self._emit_pe = None
 
     # ------------------------------------------------------------------
+    def load_tuning(self, path: str) -> bool:
+        """Start from a previous run's converged lane budgets (the JSON
+        of save_tuning; either package's file loads in the other)."""
+        try:
+            with open(path) as fh:
+                t = json.load(fh)
+        except (OSError, ValueError):
+            return False
+        cfg = self.cfg
+        for k in ("nf_mult", "mem_slots", "max_seeds", "chain_bucket",
+                  "collect_mult"):
+            if k in t:
+                setattr(cfg, k, int(t[k]))
+        if "k_spec" in t:
+            self._k_spec = min(int(t["k_spec"]), cfg.max_seeds, 32)
+        return True
+
+    def save_tuning(self, path: str) -> None:
+        cfg = self.cfg
+        tmp = path + ".tmp"
+        with open(tmp, "w") as fh:
+            json.dump({
+                "nf_mult": cfg.nf_mult, "mem_slots": cfg.mem_slots,
+                "max_seeds": cfg.max_seeds,
+                "chain_bucket": cfg.chain_bucket,
+                "collect_mult": cfg.collect_mult, "k_spec": self._k_spec,
+            }, fh)
+        os.replace(tmp, path)
+
     def set_native_emit(self, emit_ctx) -> None:
         """Route batches with aux=(names, quals, comments) through the
         C++ PE-pair + BAM-encode pass (glue_pe_emit): align_stream then
@@ -212,32 +356,118 @@ class AlignEngine:
         self._emit_pe = PEScorer(self.host, emit_ctx.max_isize,
                                  emit_ctx.min_isize, emit_ctx.normal_read_len)
 
+    # ---- host <-> device ----------------------------------------------
+    def _upload(self, a: np.ndarray) -> torch.Tensor:
+        """Host array -> device tensor without a stream sync: staged
+        through pinned memory (PyTorch's caching host allocator reuses
+        the blocks once their copies are done) and copied non-blocking."""
+        t = torch.from_numpy(np.ascontiguousarray(a))
+        if self.device.type != "cuda":
+            return t
+        return t.pin_memory().to(self.device, non_blocking=True)
+
+    def _download(self, tensors: dict):
+        """Start non-blocking copies of device tensors into pinned host
+        tensors and record one event behind them; _wait returns NumPy
+        views once the event has passed."""
+        if self.device.type != "cuda":
+            return tensors, None
+        host = {}
+        for k, t in tensors.items():
+            h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            host[k] = h.copy_(t.contiguous(), non_blocking=True)
+        ev = torch.cuda.Event()
+        ev.record()
+        return host, ev
+
+    def _wait(self, handle) -> dict:
+        host, ev = handle
+        if ev is not None:
+            ev.synchronize()
+            self.prof["n_event_waits"] += 1
+        return {k: t.numpy() for k, t in host.items()}
+
+    # ------------------------------------------------------------------
     def align_batch(self, seqs: list[str], oris) -> list[SingleEndState]:
         return self._finish_batch(self._submit_batch(seqs, oris))
 
     def align_stream(self, batches):
-        """One batch in flight; host prep of the next batch runs in a
-        worker thread while this one finishes. `batches` yields (seqs,
-        oris[, aux]); yields state lists / emit blobs in order."""
+        """Software-pipelined batches: cfg.stream_depth fronts stay in
+        flight and each batch's DP phase (result wait, replay, emit) is
+        deferred one iteration, so a batch's copies land while newer
+        fronts run. Host prep runs in one worker thread with two prep
+        futures in flight. stream_depth 1: one batch at a time, the next
+        front enqueued at the point cfg.pipe_order names. `batches` yields
+        (seqs, oris[, aux]); yields state lists / emit blobs in order."""
         from concurrent.futures import ThreadPoolExecutor
 
         it = iter(batches)
-        try:
-            pend = self._submit_batch(*next(it))
-        except StopIteration:
+        depth = self.cfg.stream_depth
+        if depth <= 1:
+            yield from self._align_stream_d1(it)
+            return
+        b = next(it, None)
+        if b is None:
             return
         with ThreadPoolExecutor(max_workers=1) as pool:
+            q_front: deque = deque()   # front dispatched, chain pending
+            q_dp: deque = deque()      # DP dispatched, results pending
+            q_prep: deque = deque()    # prep futures in flight
+            q_front.append(self._submit_batch(*b))
+            for _ in range(depth - 1):
+                b = next(it, None)
+                if b is None:
+                    break
+                q_front.append(self._submit_batch(*b))
+            if b is not None:
+                while len(q_prep) < 2:
+                    b = next(it, None)
+                    if b is None:
+                        break
+                    q_prep.append(pool.submit(self._prep_batch, *b))
+            while q_front or q_dp:
+                if q_front:
+                    pend = q_front.popleft()
+                    self._finish_front(pend)
+                    q_dp.append(pend)
+                    if q_prep:
+                        t = time.perf_counter()
+                        q_front.append(
+                            self._dispatch_front(q_prep.popleft().result()))
+                        self.prof["host_submit"] += time.perf_counter() - t
+                        b = next(it, None)
+                        if b is not None:
+                            q_prep.append(pool.submit(self._prep_batch, *b))
+                # the DP phase waits one iteration while fronts remain
+                if q_dp and (not q_front or len(q_dp) > 1):
+                    yield self._finish_dp(q_dp.popleft())
+
+    def _align_stream_d1(self, it):
+        """stream_depth 1: one batch in flight; host prep of the next
+        batch runs in a worker thread while this one finishes."""
+        from concurrent.futures import ThreadPoolExecutor
+
+        b = next(it, None)
+        if b is None:
+            return
+        pend = self._submit_batch(*b)
+        with ThreadPoolExecutor(max_workers=1) as pool:
             while True:
-                try:
-                    nxt = next(it)
-                except StopIteration:
+                nxt = next(it, None)
+                if nxt is None:
                     yield self._finish_batch(pend)
                     return
                 prep_fut = pool.submit(self._prep_batch, *nxt)
-                yield self._finish_batch(pend)
-                t = time.perf_counter()
-                pend = self._dispatch_front(prep_fut.result())
-                self.prof["host_submit"] += time.perf_counter() - t
+                holder = {}
+
+                def dispatch_next(fut=prep_fut):
+                    t = time.perf_counter()
+                    holder["p"] = self._dispatch_front(fut.result())
+                    self.prof["host_submit"] += time.perf_counter() - t
+
+                yield self._finish_batch(pend, on_dp_dispatched=dispatch_next)
+                pend = holder.get("p") or self._dispatch_front(
+                    prep_fut.result())
 
     def _submit_batch(self, seqs, oris, aux=None):
         t = time.perf_counter()
@@ -247,11 +477,14 @@ class AlignEngine:
 
     def _prep_batch(self, seqs: list[str], oris, aux=None):
         """Host-only batch preparation (encode, STR screen, packing);
-        touches no device state, so it runs in a worker thread."""
+        touches no device or adaptive state, so it runs in a worker
+        thread."""
+        cfg = self.cfg
         n = len(seqs)
         n_pad = max(64, 1 << (max(n, 1) - 1).bit_length())
-        fit_lens = [len(s) for s in seqs if len(s) <= READ_CLASSES[-1]]
-        L = read_class(max(fit_lens)) if fit_lens else READ_CLASSES[0]
+        fit_lens = [len(s) for s in seqs if len(s) <= cfg.max_read_len]
+        L = cfg.read_class(max(fit_lens)) if fit_lens \
+            else min(cfg.read_classes)
         states: list[SingleEndState] = []
 
         codes_f = np.zeros((n_pad, L), np.uint8)
@@ -353,43 +586,171 @@ class AlignEngine:
         if not active:
             base["front"] = None
             return base
-        codes2 = np.concatenate([codes_f, codes_r], axis=0)
+        act_pad = np.zeros(n_pad, bool)
+        act_pad[:n] = act_mask
         base.update(
-            words=pack_reads(codes2), lens2=np.concatenate([lens, lens]),
+            words=pack_reads(np.concatenate([codes_f, codes_r], axis=0)),
+            lens2=np.concatenate([lens, lens]),
             mask2=np.concatenate([seed_mask_f, seed_mask_r], axis=0),
-            S0=S0, L=L, is_str=is_str, codes_f=codes_f, codes_r=codes_r,
-            lens=lens)
+            is_str2=np.concatenate([is_str, is_str]), act_pad=act_pad,
+            S0=S0, L=L, codes_f=codes_f, codes_r=codes_r, lens=lens)
         return base
 
+    # ---- front + chain (+ collect), enqueued at dispatch ----------------
+    def _compaction_budget(self, rows: int) -> int:
+        """Row budget of this batch's compacted front (0 = uncompacted);
+        advances the compaction hysteresis as the JAX engine does at
+        dispatch."""
+        if self.cfg.compact_div <= 1:
+            return 0
+        aw = self._act_window
+        if len(aw) >= 4:
+            tight = -(-(max(aw) * 7 // 5 + 64) // 512) * 512
+            if tight == self._comp_want:
+                self._comp_want_run += 1
+            else:
+                self._comp_want = tight
+                self._comp_want_run = 1
+            if (self._comp_want_run >= _COMPACT_STABLE
+                    and self._comp_cap != tight):
+                self._comp_cap = tight
+        if self._comp_cap and self._comp_cap <= rows * 7 // 8:
+            return max(256, min(self._comp_cap, rows))
+        return 0
+
+    def _use_device_collect(self) -> bool:
+        c = self.cfg.collect
+        if c == "host":
+            return False
+        has = hasattr(self._glue_lib, "glue_collect_paths")
+        if c == "device" and not has:
+            raise RuntimeError(
+                "collect='device' needs libpansvr_glue with "
+                "glue_collect_paths (tools/build_native.sh)")
+        return has
+
+    def _collect_budgets(self, n_pad: int) -> tuple[int, int]:
+        m = self.cfg.collect_mult
+        return m * n_pad, 2 * m * n_pad
+
+    def _front(self, words, lens2, mask2, S0, S, M, n_ext, nf_mult, comp):
+        """Seeding front + merge/expand. Returns es, stats3 (3, rows)
+        [overflow, dropped, seed count] in full row space, and the row
+        map of a compacted front (None uncompacted)."""
+        if not comp:
+            sb = seed_reads_flat(self.didx, words, lens2, mask2, S0=S0,
+                                 n_ext_steps=n_ext, M=M, nf_mult=nf_mult)
+            es = merge_expand_device3(sb, self.didx, S=S)
+            return es, torch.stack([sb.n_overflow, es.n_dropped,
+                                    es.valid.sum(1).to(_I32)]), None
+        sb, rid, over_budget = seed_reads_flat(
+            self.didx, words, lens2, mask2, S0=S0, n_ext_steps=n_ext, M=M,
+            nf_mult=nf_mult, compact_rows=comp)
+        es = merge_expand_device3(sb, self.didx, S=S)
+        B_full = words.shape[0]
+        ridx = rid.to(_I64)
+
+        def scatter_full(init, vals):
+            # slot B_full takes the empty compacted slots (dropped)
+            out = torch.cat([init, init.new_zeros(1)])
+            return out.index_add_(0, ridx, vals.to(_I32))[:B_full]
+
+        zeros = torch.zeros(B_full, dtype=_I32, device=words.device)
+        ov = torch.where(over_budget, BUDGET_OVERFLOW, 0).to(_I32)
+        stats3 = torch.stack([scatter_full(ov, sb.n_overflow),
+                              scatter_full(zeros, es.n_dropped),
+                              scatter_full(zeros, es.valid.sum(1))])
+        return es, stats3, rid
+
+    def _chain_out(self, front: dict, K: int, n_pad: int, NC: int,
+                   NP: int) -> dict:
+        """Chain at width K over the front's seeds, then chain extraction
+        (host collect) or select_and_paths (device collect, NC > 0): the
+        device tensors the host needs."""
+        es = front["es"]
+        cr = chain_batch(
+            es.read_begin[:, :K], es.read_end[:, :K], es.ref_begin[:, :K],
+            es.ref_end[:, :K], es.cov[:, :K], es.seed_id[:, :K],
+            es.valid[:, :K], front["is_str"])
+        hit_idx, hit_score, hit_final = chain_extract_batch(
+            cr.dist, cr.pre, cr.valid)
+        if NC:
+            co = select_and_paths(
+                cr.read_begin, cr.read_end, cr.ref_begin, cr.ref_end, cr.pre,
+                hit_idx, hit_score, hit_final, front["active"], front["rid"],
+                n_pad=n_pad, NC=NC, NP=NP)
+            return dict(over=co.over,
+                        scal=torch.cat([co.n_chains, co.n_nodes]),
+                        chain_meta=co.chain_meta, path_a=co.path_a,
+                        path_b=co.path_b,
+                        path_dfe=co.path_dfe.to(torch.int16))
+        # the glue reads int16/int8 chain tensors; fe rides as fe - fb
+        out = dict(
+            p32=cr.ref_begin,
+            p16=torch.stack([cr.read_begin, cr.read_end,
+                             cr.ref_end - cr.ref_begin]).to(torch.int16),
+            p8=cr.pre.to(torch.int8),
+            hits8=torch.stack([hit_idx, hit_final]).to(torch.int8),
+            hscore=hit_score.to(torch.int16))
+        if front["rid"] is not None:
+            out["rid"] = front["rid"]
+        return out
+
     def _dispatch_front(self, prep):
-        """Device front (seeding + merge/expand) for a prepared batch;
-        queued on the device, not waited on."""
+        """Enqueue the batch's front, chain at the speculative width and
+        collect, and start the copies of their results to the host; waits
+        for nothing (main thread only)."""
         if "front" in prep:
-            return prep
-        dev = self.device
-        L = prep["L"]
-        S0 = prep["S0"]
+            return prep   # no active reads
+        cfg = self.cfg
+        L, S0, n_pad = prep["L"], prep["S0"], prep["n_pad"]
         n_ext = max(9, -(-(L - LEN_KMER) // 16))
         # MEM lanes cover at least one hit per seed position
-        M = max(MEM_SLOTS, (S0 + 1 + 15) // 16 * 16)
-        words = torch.from_numpy(prep.pop("words")).to(dev)
-        lens2 = torch.from_numpy(prep.pop("lens2")).to(dev)
-        mask2 = torch.from_numpy(prep.pop("mask2")).to(dev)
-        sb = seed_reads_flat(self.didx, words, lens2, mask2, S0=S0,
-                             n_ext_steps=n_ext, M=M, nf_mult=NF_MULT)
-        es = merge_expand_device3(sb, self.didx, S=MAX_SEEDS)
-        stats3 = torch.stack([sb.n_overflow, es.n_dropped,
-                              es.valid.sum(1).to(_I32)])
-        prep["front"] = (es, stats3)
-        prep["codes_flat"] = unpack_codes(words, L)
-        prep["read_class"] = L
+        M = max(cfg.mem_slots, (S0 + 1 + 15) // 16 * 16)
+        S = cfg.max_seeds
+        K = self._k_spec
+        comp = self._compaction_budget(2 * n_pad)
+        NC, NP = self._collect_budgets(n_pad) \
+            if self._use_device_collect() else (0, 0)
+        words = self._upload(prep.pop("words"))
+        lens2 = self._upload(prep.pop("lens2"))
+        mask2 = self._upload(prep.pop("mask2"))
+        is_str2 = self._upload(prep.pop("is_str2"))
+        act_pad = prep.pop("act_pad")
+        es, stats3, rid = self._front(words, lens2, mask2, S0, S, M, n_ext,
+                                      cfg.nf_mult, comp)
+        if rid is not None:
+            self.prof["n_compacted"] += 1
+            B_full = words.shape[0]
+            is_str2 = is_str2[rid.to(_I64).clamp(0, B_full - 1)] \
+                & (rid < B_full)
+        front = dict(es=es, stats3=stats3, rid=rid, is_str=is_str2,
+                     active=self._upload(act_pad) if NC else None)
+        out = self._chain_out(front, K, n_pad, NC, NP)
+        out["stats3"] = stats3
+        prep.update(
+            front=front, chain=self._download(out),
+            shapes=dict(M=M, S=S, K=K, comp=comp, NC=NC, NP=NP),
+            codes_flat=unpack_codes(words, L), read_class=L)
         return prep
 
-    def _finish_batch(self, pend):
-        self._finish_front(pend)
+    def _finish_batch(self, pend, on_dp_dispatched=None):
+        self._finish_front(pend, on_dp_dispatched)
         return self._finish_dp(pend)
 
-    def _finish_front(self, pend) -> None:
+    def _redispatch(self, pend, on_dp_dispatched) -> None:
+        """Batch retry: prepare and dispatch the same batch again (with
+        the budgets just widened) and finish its front in place."""
+        pend2 = self._dispatch_front(self._prep_batch(
+            pend["seqs"], pend["oris"], pend.get("aux")))
+        pend2["retry"] = pend.get("retry", 0) + 1
+        self.prof["n_retry"] += 1
+        pend.clear()
+        pend.update(pend2)
+        self._finish_front(pend, on_dp_dispatched)
+
+    def _finish_front(self, pend, on_dp_dispatched=None) -> None:
+        cfg = self.cfg
         states = pend["states"]
         active = pend["active"]
         n = pend["n"]
@@ -398,47 +759,120 @@ class AlignEngine:
         t = time.perf_counter()
         for i in pend.get("oversize", ()):
             states[i] = self.host.align_read(seqs[i], self._ori_obj(pend, i))
-        self.prof["n_oversize"] += len(pend.get("oversize", ()))
         if pend.get("oversize"):
             self.prof["host_fallback"] += time.perf_counter() - t
-        if pend["front"] is None:
+        # the device tensors of the front live until this batch's chain
+        # is final (a K miss re-chains from them)
+        front = pend.pop("front")
+        if front is None:
+            self.prof["n_oversize"] += len(pend.get("oversize", ()))
+            if on_dp_dispatched is not None:
+                on_dp_dispatched()
             pend["dp"] = ("none",)
             return
-        es, stats3_dev = pend["front"]
+        sh = pend["shapes"]
+        K, comp, NC, NP = sh["K"], sh["comp"], sh["NC"], sh["NP"]
+        B2 = 2 * n_pad
         t = time.perf_counter()
-        stats3 = stats3_dev.cpu().numpy()
-        self.prof["sync_front"] += time.perf_counter() - t
+        out = self._wait(pend.pop("chain"))
+        self.prof["sync_chain"] += time.perf_counter() - t
+        stats3 = out["stats3"]
         overflow, dropped, seed_count = stats3
-        # chain width: this batch's largest seed count, bucketed; 32 is
-        # the device cap (ancestor bitmasks), wider rows take the host path
         kmax = int(seed_count.max()) if len(seed_count) else 0
-        K = min(MAX_SEEDS, 32, max(8, 1 << max(kmax - 1, 0).bit_length()))
-        t = time.perf_counter()
-        is_str2 = torch.from_numpy(
-            np.concatenate([pend["is_str"], pend["is_str"]])).to(self.device)
-        cr = chain_batch(
-            es.read_begin[:, :K], es.read_end[:, :K], es.ref_begin[:, :K],
-            es.ref_end[:, :K], es.cov[:, :K], es.seed_id[:, :K],
-            es.valid[:, :K], is_str2)
-        hit_idx, hit_score, hit_final = chain_extract_batch(
-            cr.dist, cr.pre, cr.valid)
-        # the glue reads int16/int8 chain tensors through ctypes
-        s_fb = cr.ref_begin.cpu().numpy()
-        p16 = torch.stack([cr.read_begin, cr.read_end,
-                           cr.ref_end - cr.ref_begin]).to(torch.int16)
-        p16 = p16.cpu().numpy()
-        pre = cr.pre.to(torch.int8).cpu().numpy()
-        hits8 = torch.stack([hit_idx, hit_final]).to(torch.int8).cpu().numpy()
-        hscore = hit_score.to(torch.int16).cpu().numpy()
-        self.prof["chain"] += time.perf_counter() - t
+        # speculative width: grow at once, shrink one step after 8
+        # narrower batches; 32 is the device chain cap (ancestor masks),
+        # rows with more seeds take the host path below
+        bucket = min(cfg.max_seeds, 32,
+                     max(8, 1 << max(kmax - 1, 0).bit_length()))
+        if bucket > self._k_spec:
+            self._k_spec = bucket
+            self._k_shrink_run = 0
+        elif bucket < self._k_spec:
+            self._k_shrink_run += 1
+            if self._k_shrink_run >= 8:
+                self._k_spec = max(bucket, self._k_spec // 2)
+                self._k_shrink_run = 0
+        else:
+            self._k_shrink_run = 0
+        if kmax > K and K < 32:
+            # speculation missed: re-chain at the full width of the es
+            # this batch's front produced
+            K = min(sh["S"], 32)
+            t = time.perf_counter()
+            out.update(self._wait(self._download(
+                self._chain_out(front, K, n_pad, NC, NP))))
+            self.prof["sync_chain"] += time.perf_counter() - t
+            self.prof["n_rechain"] += 1
 
         fallback = set(int(r) % n_pad for r in np.nonzero(overflow > 0)[0])
         fallback |= set(int(r) % n_pad for r in np.nonzero(dropped > 0)[0])
-        fallback |= set(int(r) % n_pad
-                        for r in np.nonzero(seed_count > 32)[0])
+        # rows past the 32-node device chain cap: exact host path, always
+        seed32 = set(int(r) % n_pad for r in np.nonzero(seed_count > 32)[0])
+        n_seed32 = len(seed32 - fallback)
+        fallback |= seed32
+        # ---- batch retry on mass lane overflow --------------------------
+        # widen the budget that overflowed and re-dispatch this batch
+        # instead of host-aligning most of it
+        if (len(fallback) - n_seed32 > max(64, len(active) // 8)
+                and pend.get("retry", 0) < 4):
+            widened = False
+            flat_n = int(((overflow & FLAT_OVERFLOW) != 0).sum())
+            m_over = int(((overflow & (FLAT_OVERFLOW - 1)) > 0).sum())
+            drop_n = int((dropped > 0).sum())
+            if flat_n and cfg.nf_mult < 64:
+                cfg.nf_mult = min(64, cfg.nf_mult * 2)
+                widened = True
+            if (m_over or drop_n) and cfg.mem_slots < cfg.retier_max:
+                cfg.mem_slots = min(cfg.mem_slots * 2, cfg.retier_max)
+                cfg.max_seeds = min(cfg.max_seeds * 2, cfg.retier_max)
+                cfg.chain_bucket = min(cfg.chain_bucket * 2, cfg.retier_max)
+                widened = True
+            budget_n = int(((overflow & BUDGET_OVERFLOW) != 0).sum())
+            if not widened and budget_n and self._comp_cap:
+                # mass compaction-budget overflow: retry uncompacted
+                self._drop_compaction()
+                widened = True
+            if widened:
+                self.prof["n_widen"] += 1
+                self.prof["n_retry_over"] += len(fallback)
+                _log(f"{len(fallback)} reads over lane budgets (flat="
+                     f"{flat_n} M/S={m_over}/{drop_n}): widening to "
+                     f"(M,S,K,nf)=({cfg.mem_slots}, {cfg.max_seeds}, "
+                     f"{cfg.chain_bucket}, {cfg.nf_mult}) and "
+                     "re-dispatching the batch")
+                self._k_spec = min(self._k_spec, cfg.max_seeds)
+                self._redispatch(pend, on_dp_dispatched)
+                return
+        n_collect_over = 0
+        if NC:
+            # reads whose chains/paths missed the collect lane budgets:
+            # exact host path now, budgets sized from the true demand
+            c_over, c_scal = out["over"], out["scal"]
+            co_reads = set(int(r) for r in np.nonzero(c_over)[0])
+            n_collect_over = len(co_reads - fallback)
+            if n_collect_over and cfg.collect_mult < 16:
+                need = max(-(-int(c_scal[1]) // n_pad),
+                           -(-int(c_scal[3]) // (2 * n_pad)),
+                           cfg.collect_mult + 1)
+                cfg.collect_mult = min(16, max(1 << (need - 1).bit_length(),
+                                               cfg.collect_mult * 2))
+                self.prof["n_widen"] += 1
+                if (n_collect_over > max(64, len(active) // 8)
+                        and pend.get("retry", 0) < 4):
+                    # mass overflow: retry instead of host-aligning it
+                    self.prof["n_retry_over"] += n_collect_over
+                    _log(f"{n_collect_over} reads over the collect "
+                         f"budgets: collect_mult -> {cfg.collect_mult}, "
+                         "re-dispatching the batch")
+                    self._redispatch(pend, on_dp_dispatched)
+                    return
+                _log(f"device-collect budgets overflowed for "
+                     f"{n_collect_over} reads: collect_mult -> "
+                     f"{cfg.collect_mult}")
+            fallback |= co_reads
         hit_rows = (seed_count > 0) | (overflow > 0)
-        hit_reads = hit_rows[:n_pad] | hit_rows[n_pad:]
-        self.prof["n_hit_reads"] += int(hit_reads[:n].sum())
+        self.prof["n_hit_reads"] += int((hit_rows[:n_pad]
+                                         | hit_rows[n_pad:])[:n].sum())
         pend["fallback"] = fallback
         t = time.perf_counter()
         for i in list(fallback):
@@ -448,42 +882,131 @@ class AlignEngine:
                 active.remove(i)
         self.prof["host_fallback"] += time.perf_counter() - t
         self.prof["n_fallback"] += len(fallback)
+        self.prof["n_oversize"] += len(pend.get("oversize", ()))
         self.prof["n_reads"] += n
-        self._dispatch_native_dp(pend, active, n_pad, s_fb, p16, pre,
-                                 hits8, hscore)
+        self.prof["n_batches"] += 1
+        self._adapt_after_batch(stats3, comp, fallback, n_collect_over,
+                                n_seed32, n, n_pad)
 
-    def _dispatch_native_dp(self, pend, active, n_pad, s_fb, p16, pre,
-                            hits8, hit_score):
-        """The C++ collect walk plans the DP requests; the DP chunks go
-        to the device (results read back in _finish_native_dp)."""
+        if on_dp_dispatched is not None and cfg.pipe_order == "early":
+            # "early": the next batch's front goes right behind this
+            # batch's chain, before its DP
+            on_dp_dispatched()
+            on_dp_dispatched = None
         L = pend["codes_f"].shape[1]
-        active_mask = np.zeros(n_pad, np.uint8)
-        if active:
-            active_mask[np.array(sorted(active), np.int64)] = 1
         t = time.perf_counter()
-        gb = native_glue.GlueBatch(
-            self._glue_lib, n_pad=n_pad, L=L, K=s_fb.shape[1],
-            s_rb=p16[0], s_re=p16[1], s_fb=np.ascontiguousarray(s_fb),
-            s_dfe=p16[2], pre=np.ascontiguousarray(pre),
-            hit_idx=hits8[0], hit_score=np.ascontiguousarray(hit_score),
-            hit_final=hits8[1],
-            codes_f=pend["codes_f"], codes_r=pend["codes_r"],
-            lens=pend["lens"], active_mask=active_mask,
-            packed_ref=self._packed_ref, chr_starts=self._chr_starts64,
-            sv_st_pos=self._sv_st_pos, params=self.p,
-        )
+        if NC:
+            # the device selected the chains and gathered their paths;
+            # host-path reads' chains get the skip bit so the C++ walk
+            # produces no results for them
+            n_chains, n_nodes = int(out["scal"][0]), int(out["scal"][2])
+            chain_meta = out["chain_meta"][:n_chains]
+            if fallback and n_chains:
+                chain_meta = chain_meta.copy()
+                m0 = chain_meta[:, 0]
+                fb_arr = np.fromiter(fallback, np.int32, len(fallback))
+                bad = (m0 >= 0) & np.isin(m0 & 0x7FFF, fb_arr)
+                chain_meta[:, 0] = np.where(bad, m0 | (1 << 24), m0)
+            gb = native_glue.GlueBatch.from_paths(
+                self._glue_lib, n_pad=n_pad, L=L, chain_meta=chain_meta,
+                path_a=out["path_a"][:n_nodes],
+                path_b=out["path_b"][:n_nodes],
+                path_dfe=out["path_dfe"][:n_nodes],
+                codes_f=pend["codes_f"], codes_r=pend["codes_r"],
+                lens=pend["lens"], packed_ref=self._packed_ref,
+                chr_starts=self._chr_starts64, sv_st_pos=self._sv_st_pos,
+                params=self.p)
+        else:
+            s_fb, p16, pre, hits8, hscore = chain_unpack(out, B2, K)
+            active_mask = np.zeros(n_pad, np.uint8)
+            if active:
+                active_mask[np.array(sorted(active), np.int64)] = 1
+            gb = native_glue.GlueBatch(
+                self._glue_lib, n_pad=n_pad, L=L, K=K,
+                s_rb=p16[0], s_re=p16[1], s_fb=s_fb, s_dfe=p16[2], pre=pre,
+                hit_idx=hits8[0], hit_score=hscore, hit_final=hits8[1],
+                codes_f=pend["codes_f"], codes_r=pend["codes_r"],
+                lens=pend["lens"], active_mask=active_mask,
+                packed_ref=self._packed_ref, chr_starts=self._chr_starts64,
+                sv_st_pos=self._sv_st_pos, params=self.p)
         self.prof["host_collect"] += time.perf_counter() - t
         self.prof["n_dp_req"] += gb.n_req
-        self._dispatch_dp_from_gb(pend, gb)
+        self._dispatch_dp_from_gb(pend, gb, on_dp_dispatched)
 
-    def _dispatch_dp_from_gb(self, pend, gb):
+    def _drop_compaction(self) -> None:
+        """Uncompacted from the next dispatch on; re-engaging needs a
+        fresh window of batches."""
+        self._act_window.clear()
+        self._comp_cap = 0
+        self._comp_want = 0
+        self._comp_want_run = 0
+
+    def _adapt_after_batch(self, stats3, comp, fallback, n_collect_over,
+                           n_seed32, n, n_pad) -> None:
+        """Compaction window, retier window and the one-time fallback
+        warning, from a finished batch's statistics."""
+        cfg = self.cfg
+        # budget-overflow rows say nothing about the M/S/K caps: they
+        # stay out of the retier window and the warning
+        bud = np.nonzero(stats3[0] & BUDGET_OVERFLOW)[0] if comp else ()
+        nb_reads = len({int(r) % n_pad for r in bud})
+        self.prof["n_budget_fallback"] += nb_reads
+        if cfg.compact_div > 1:
+            if len(bud):
+                self._drop_compaction()
+            else:
+                self._act_window.append(
+                    int(((stats3[2] > 0) | (stats3[0] > 0)).sum()))
+        self._tier_window.append(
+            (max(len(fallback) - nb_reads - n_collect_over - n_seed32, 0), n))
+        self._maybe_retier()
+        nr = self.prof["n_reads"]
+        n_hard = self.prof["n_fallback"] - self.prof["n_budget_fallback"]
+        if not self._fallback_warned and nr >= 4096 and n_hard > 0.05 * nr:
+            self._fallback_warned = True
+            _log(f"WARNING: {int(self.prof['n_fallback'])}/{int(nr)} reads "
+                 f"({100 * self.prof['n_fallback'] / nr:.1f}%) took the host "
+                 "fallback path (seed-slot overflow/drops). Throughput will "
+                 "degrade; consider raising EngineConfig.mem_slots / "
+                 "max_seeds for this workload.")
+
+    def _maybe_retier(self) -> None:
+        """Repeat-rich reads overflow the per-read caps (M MEM lanes, S
+        seeds, K chain width): when the recent fallback rate crosses the
+        threshold, double the caps (bounded by retier_max)."""
+        cfg = self.cfg
+        if cfg.mem_slots >= cfg.retier_max:
+            return
+        win = self._tier_window[-4:]
+        nf = sum(f for f, _ in win)
+        n = sum(x for _, x in win)
+        if n >= 2048 and nf > cfg.retier_threshold * n:
+            old = (cfg.mem_slots, cfg.max_seeds, cfg.chain_bucket,
+                   cfg.nf_mult)
+            cfg.mem_slots = min(cfg.mem_slots * 2, cfg.retier_max)
+            cfg.max_seeds = min(cfg.max_seeds * 2, cfg.retier_max)
+            cfg.chain_bucket = min(cfg.chain_bucket * 2, cfg.retier_max)
+            cfg.nf_mult = min(cfg.nf_mult * 2, cfg.retier_max)
+            self._k_spec = min(self._k_spec, cfg.max_seeds)
+            self._tier_window.clear()
+            self.prof["n_widen"] += 1
+            _log(f"fallback rate {nf}/{n} over the last batches: widening "
+                 f"device shapes (M,S,K,nf) {old} -> ({cfg.mem_slots}, "
+                 f"{cfg.max_seeds}, {cfg.chain_bucket}, {cfg.nf_mult})")
+
+    # ---- DP ------------------------------------------------------------
+    def _dispatch_dp_from_gb(self, pend, gb, on_dp_dispatched=None):
         """DP over three size classes, each size-sorted and cut into
-        full chunks plus quarter-size residue chunks."""
+        full chunks plus quarter-size residue chunks; every chunk's
+        request metadata goes up in one copy, every result comes back
+        behind one event."""
+        cfg = self.cfg
         t = time.perf_counter()
-        dp_q, dp_t = dp_class(pend["read_class"])
+        dp_q, dp_t = cfg.dp_class(pend["read_class"])
         # (48, 64) first: most DP segments are small chain-gap repairs
-        classes = [(48, 64, 64, DP_CHUNK), (96, 128, 128, DP_CHUNK // 4),
-                   (dp_q, dp_t, 256, DP_CHUNK // 16)]
+        classes = [(48, 64, 64, cfg.dp_chunk),
+                   (96, 128, 128, max(cfg.dp_chunk // 4, 128)),
+                   (dp_q, dp_t, 256, max(cfg.dp_chunk // 16, 128))]
         classes = [c for c in classes[:-1]
                    if c[0] < dp_q and c[1] < dp_t] + [classes[-1]]
         ql_all, tl_all = gb.req_sizes()
@@ -494,41 +1017,47 @@ class AlignEngine:
         meta5 = gb.req_meta()
         if meta5 is None:
             raise RuntimeError("native glue returned no DP request metadata")
-        codes_flat = pend["codes_flat"]
-        dev = self.device
-        chunks = []
+        layout = []   # (cq, ct, W, members, chunk size, column offset)
+        off = 0
         for ci, (cq, ct, W, CHUNK) in enumerate(classes):
             members = np.nonzero(assigned == ci)[0].astype(np.int32)
             # size-sort: neighbouring problems have similar sweep lengths
             members = members[np.argsort(
                 ql_all[members] + tl_all[members], kind="stable")]
             small = max(CHUNK // 4, 128)
-            bounds = []
             c0 = 0
-            while len(members) - c0 >= CHUNK:
-                bounds.append((c0, CHUNK))
-                c0 += CHUNK
             while c0 < len(members):
-                bounds.append((c0, small))
-                c0 += small
-            for c0, size in bounds:
-                mem = members[c0 : c0 + size]
-                pad = size - len(mem)
-
-                def pm(row, fill=0):
-                    return torch.from_numpy(np.concatenate(
-                        [row[mem], np.full(pad, fill, np.int32)])).to(dev)
-
+                size = CHUNK if len(members) - c0 >= CHUNK else small
+                layout.append((cq, ct, W, members[c0 : c0 + size], size, off))
+                off += size
+                c0 += size
+        chunks = []
+        if layout:
+            # padding problems: empty query/target of length 1
+            meta = np.repeat(np.array([[0], [1], [0], [1], [0]], np.int32),
+                             off, axis=1)
+            for cq, ct, W, mem, size, o in layout:
+                meta[:, o : o + len(mem)] = meta5[:, mem]
+            meta_dev = self._upload(meta)
+            outs = {}
+            for k, (cq, ct, W, mem, size, o) in enumerate(layout):
+                m = meta_dev[:, o : o + size]
                 qc, ql, tc, tl = dp_fill_meta(
-                    codes_flat, self.didx.ref_words, pm(meta5[0]),
-                    pm(meta5[1], 1), pm(meta5[2]), pm(meta5[3], 1),
-                    pm(meta5[4]), self._tru_ref_len, cq, ct)
-                chunks.append((mem, dp_chunk(qc, ql, tc, tl,
-                                             self.dp_params, W)))
+                    pend["codes_flat"], self.didx.ref_words, m[0], m[1],
+                    m[2], m[3], m[4], self._tru_ref_len, cq, ct)
+                ops, packed = dp_chunk(qc, ql, tc, tl, self.dp_params, W)
+                outs[f"ops{k}"] = ops[: len(mem)]
+                outs[f"packed{k}"] = packed[:, : len(mem)]
+                chunks.append(mem)
+            handle = self._download(outs)
+        else:
+            handle = ({}, None)
         big = np.nonzero(assigned < 0)[0]
         self.prof["n_dp_chunks"] += len(chunks)
         self.prof["dp_dispatch"] += time.perf_counter() - t
-        pend["dp"] = ("native", gb, chunks, big, ql_all, tl_all)
+        if on_dp_dispatched is not None:
+            on_dp_dispatched()
+        pend["dp"] = ("native", gb, chunks, handle, big, ql_all, tl_all)
 
     def _finish_dp(self, pend):
         kind = pend.pop("dp")
@@ -539,7 +1068,8 @@ class AlignEngine:
             return states
         return self._finish_native_dp(pend, *kind[1:])
 
-    def _finish_native_dp(self, pend, gb, chunks, big, ql_all, tl_all):
+    def _finish_native_dp(self, pend, gb, chunks, handle, big, ql_all,
+                          tl_all):
         states = pend["states"]
         t = time.perf_counter()
         for k in big:
@@ -550,25 +1080,22 @@ class AlignEngine:
         t2 = time.perf_counter()
         self.prof["dp_big"] += t2 - t
         self.prof["n_dp_big"] += len(big)
-        for mem, (ops, packed) in chunks:
-            ops = ops[: len(mem)].cpu().numpy()
-            packed = packed[:, : len(mem)].cpu().numpy()
+        res = self._wait(handle)
+        for k, mem in enumerate(chunks):
             # ops carry 3 (= no op) at skipped diagonals
-            gb.set_dp_chunk(mem, ops, packed, True)
+            gb.set_dp_chunk(mem, res[f"ops{k}"], res[f"packed{k}"], True)
         self.prof["sync_dp"] += time.perf_counter() - t2
 
         t = time.perf_counter()
-        if self._emit_ctx is not None and pend.get("aux") is not None:
-            res = gb.replay()
-            blob = self._emit_tail(pend, states, gb, res)
-            gb.free()
-            self.prof["host_replay"] += time.perf_counter() - t
-            return blob
         res = gb.replay()
+        if self._emit_ctx is not None and pend.get("aux") is not None:
+            out = self._emit_tail(pend, states, gb, res)
+        else:
+            _append_results(states, res, 0, len(res[0]))
+            out = states
         gb.free()
-        _append_results(states, res, 0, len(res[0]))
         self.prof["host_replay"] += time.perf_counter() - t
-        return states
+        return out
 
     # ------------------------------------------------------------------
     @staticmethod

@@ -8,6 +8,10 @@ Same positionals and flags as ``python -m pansvr_tpu fc_aln``, plus
 --device (default cuda; asking for cuda where there is none raises, the
 plain CPU path takes an explicit --device cpu). The other subcommands
 live in ``python -m pansvr_tpu``.
+
+Like the JAX CLI, fc_aln starts the engine from INDEX_DIR/engine_tune.json
+(the lane budgets a previous run on that index converged to; either
+package's file loads in the other) and writes it back at the end.
 """
 
 from __future__ import annotations
@@ -22,9 +26,10 @@ OTHER_COMMANDS = ("fc_anchor_ref", "fc_index", "fc_signal", "fc_sv", "run",
                   "assembly_test", "sv_calling", "tools")
 
 
-def run_fc_aln(args):
+def run_fc_aln(args, config=None):
     """signal FASTQ + index -> realigned BAM; returns the engine (its
-    .prof holds the phase timers and counts)."""
+    .prof holds the phase timers and counts). `config`: an
+    align.engine.EngineConfig (default: its defaults)."""
     from pansvr_tpu.align import native_glue
     from pansvr_tpu.align.bam_out import EmitContext, min_filter_score
     from pansvr_tpu.align.host_align import PEScorer
@@ -41,8 +46,13 @@ def run_fc_aln(args):
     stats = SignalStats.parse_status_text(open(args.status_file).read()) \
         if args.status_file else SignalStats(read_len=150, min_isize=200,
                                              max_isize=600)
-    eng = AlignEngine(idx, ori_chrom_names=header.ref_names,
+    eng = AlignEngine(idx, config=config, ori_chrom_names=header.ref_names,
                       device=args.device)
+    tune_path = os.path.join(args.index_dir, "engine_tune.json") \
+        if os.path.isdir(args.index_dir) else None
+    if tune_path and eng.load_tuning(tune_path):
+        print(f"[fc_aln] engine tuning loaded from {tune_path}",
+              file=sys.stderr)
     pe = PEScorer(eng.host, stats.max_isize or 600, stats.min_isize or 200,
                   stats.read_len or 150)
     writer = BamWriter(args.output, header)
@@ -99,6 +109,11 @@ def run_fc_aln(args):
     with tracer as prof:
         _run_aln_stream(chunks_a, eng, pe, writer, ori_writer, header, filt,
                         batch_stream)
+    if tune_path:
+        try:
+            eng.save_tuning(tune_path)
+        except OSError:
+            pass
     if args.trace:
         os.makedirs(args.trace, exist_ok=True)
         prof.export_chrome_trace(os.path.join(args.trace, "trace.json"))

@@ -1,8 +1,8 @@
 """Batched seeding on the device: k-mer probe, unitig MEM extension,
 merge + reference expansion.
 
-Port of the flat front of pansvr_tpu/ops/seeding.py (seed_reads_flat
-with compact_rows=0, merge_expand_device3) to PyTorch. Same semantics
+Port of the flat front of pansvr_tpu/ops/seeding.py (seed_reads_flat,
+with its active-row compaction, and merge_expand_device3) to PyTorch. Same semantics
 (read_realignment.cpp:615-644, deBGA_index.cpp search_kmer /
 UNITIG_MEM_search / merge_seed_in_unipath / expand_seed): every
 SEED_STEP bases the 20-mer is looked up, seeds with more than
@@ -39,8 +39,7 @@ RANDOM_NUM = 500
 WAITING_LEN = 3
 
 FLAT_OVERFLOW = 1 << 20    # n_overflow marker for rows cut by the lane cap
-BUDGET_OVERFLOW = 1 << 21  # marker for rows beyond a compaction budget
-                           # (never set here: this front does not compact)
+BUDGET_OVERFLOW = 1 << 21  # marker for active rows beyond compact_rows
 
 _M32 = 0xFFFFFFFF
 _I32 = torch.int32
@@ -152,11 +151,18 @@ def _coverage_skip(found, per_seed_max_right, sk, S0):
 def seed_reads_flat(didx: DeviceIndex, read_words: torch.Tensor,
                     read_lens: torch.Tensor, seed_mask: torch.Tensor,
                     S0: int, n_ext_steps: int = 10, M: int = 32,
-                    nf_mult: int = 10) -> SeedBatch:
+                    nf_mult: int = 10, compact_rows: int = 0):
     """read_words (B, Wr) int32 packed, read_lens (B,), seed_mask (B, S0)
     bool (STR whitelist). Hits of the whole batch are compacted onto one
     flat lane axis of nf_mult * B lanes; rows whose hits do not fit are
-    flagged FLAT_OVERFLOW (host path), rows over M hits report the excess."""
+    flagged FLAT_OVERFLOW (host path), rows over M hits report the excess.
+
+    compact_rows R > 0: after the probe, the rows with any k-mer hit move
+    onto R slots in row order and every later stage (and the caller's
+    merge and chain) runs at R rows instead of B. Returns (SeedBatch of R
+    rows, rid (R,) int32 source row per slot (B = empty slot),
+    over_budget (B,) bool: active rows past the budget, for the host
+    path) instead of a SeedBatch."""
     dev = read_words.device
     B, Wr = read_words.shape
     NF = nf_mult * B
@@ -185,6 +191,26 @@ def seed_reads_flat(didx: DeviceIndex, read_words: torch.Tensor,
     exists = (left < n_k) & (didx.ent_key[left_c] == qkey)
     count = torch.where(exists, didx.ent_run[left_c].to(_I64), 0)
     found = seed_ok & exists & (count > 0) & (count <= UNI_POS_N_MAX)
+
+    # --- active-row compaction (compact_rows) ----------------------------
+    if compact_rows:
+        R = compact_rows
+        act = torch.where(found, count, 0).sum(1) > 0        # (B,)
+        rank = act.to(_I64).cumsum(0) - 1
+        n_act = rank[-1] + 1
+        slot = torch.where(act & (rank < R), rank, R)
+        # rid[slot] = source row; unwritten slots keep the sentinel B
+        rid = torch.full((R + 1,), B, dtype=_I64, device=dev)
+        rid.scatter_(0, slot, torch.arange(B, dtype=_I64, device=dev))
+        rid = rid[:R]
+        slot_ok = torch.arange(R, dtype=_I64, device=dev) < n_act
+        over_budget = act & (rank >= R)
+        ridc = rid.clamp(0, B - 1)
+        found = torch.where(slot_ok[:, None], found[ridc], False)
+        count, left, rw, lens = count[ridc], left[ridc], rw[ridc], lens[ridc]
+        # NF stays nf_mult x the ORIGINAL rows: compaction removes only
+        # hit-free rows, so the batch's flat-lane demand is unchanged
+        B = R
 
     # --- per-row hit layout ---------------------------------------------
     eff = torch.where(found, count, 0)
@@ -273,10 +299,13 @@ def seed_reads_flat(didx: DeviceIndex, read_words: torch.Tensor,
         return torch.where(valid_bm, vals[src], 0).to(_I32)
 
     n_overflow = overflow0 + torch.where(row_fits, 0, FLAT_OVERFLOW)
-    return SeedBatch(
+    sb = SeedBatch(
         uid=back(uid), read_pos=back(read_pos),
         uni_pos_off=back(uni_pos_off), length=back(length),
         pos_n=back(pos_n), valid=valid_bm, n_overflow=n_overflow.to(_I32))
+    if compact_rows:
+        return sb, rid.to(_I32), over_budget
+    return sb
 
 
 def merge_expand_device3(sb: SeedBatch, didx: DeviceIndex, S: int,

@@ -6,11 +6,23 @@ first-level 12 index, signal FASTQ extracted as the reference's
 fc_signal -D -U does: about 379k signal reads), built by calling the same
 pansvr_tpu functions, without bench.py's JAX compile-cache setup. The
 index is written as a store directory (the fc_aln INDEX_DIR positional).
+
+Two derived worlds drive the engine's adaptive paths:
+  build_overflow_world  every read on target (a window of an anchor
+                        contig): ~27 k-mer hits per read overflow the
+                        default flat-lane pool, so the engine widens its
+                        budgets and retries the batch;
+  build_uniform_world   reads drawn uniformly over the genome: almost no
+                        row hits an anchor k-mer, so the active-row
+                        compaction budget engages.
 """
 
 from __future__ import annotations
 
 import os
+import shutil
+
+import numpy as np
 
 
 def build_bench_world(out_dir: str, n_pairs: int = 250_000) -> dict:
@@ -51,6 +63,91 @@ def build_bench_world(out_dir: str, n_pairs: int = 250_000) -> dict:
                                           not_using_filter=True))
     p["n_kmers"] = idx.n_kmers
     p["n_unitigs"] = idx.n_unitigs
+    return p
+
+
+def write_signal(template_fq: str, dst: str, seqs: list[str]) -> int:
+    """Signal FASTQ of `seqs` (mates adjacent), each record taking the
+    name, comment and quality (cut or padded to the read's length) of
+    the template's records in order, cycled."""
+    from .signal_fq import read_signal_fastq
+
+    tmpl = list(read_signal_fastq(template_fq))
+    tmpl = tmpl[: len(tmpl) // 2 * 2]
+    with open(dst, "w") as fo:
+        for i, seq in enumerate(seqs[: len(seqs) // 2 * 2]):
+            name, _, qual, comment = tmpl[i % len(tmpl)]
+            qual = (qual * (len(seq) // max(len(qual), 1) + 1))[: len(seq)]
+            fo.write(f"@{name}.{i // 2} {comment}\n{seq}\n+\n{qual}\n")
+    return len(seqs) // 2 * 2
+
+
+def _copy_index(src: str, dst: str) -> None:
+    """A private copy of an index directory (without the engine tuning
+    file a run on the source left there)."""
+    shutil.copytree(src, dst, ignore=shutil.ignore_patterns(
+        "engine_tune.json*"))
+
+
+def build_overflow_world(bench: dict, out_dir: str, n_reads: int = 32_768,
+                         seed: int = 7, err: float = 0.005) -> dict:
+    """On-target reads over the bench world's index: each read a 150 bp
+    window of an anchor contig (half of them reverse-complemented, base
+    substitutions at rate `err`). Every read's hitting row has ~27 k-mer
+    hits, so a batch needs ~13.5 flat lanes per row against the default
+    pool of 10: the first batch overflows it for far more reads than
+    max(64, active / 8). Returns the bench paths with this world's
+    index copy and signal FASTQ."""
+    from pansvr_tpu.utils import dna
+
+    os.makedirs(out_dir, exist_ok=True)
+    idx = load_index(bench["index"])
+    rng = np.random.default_rng(seed)
+    contigs = [idx.contig_seq_codes(c) for c in range(len(idx.chr_names))]
+    contigs = [c for c in contigs if len(c) >= 150]
+    seqs = []
+    for _ in range(n_reads):
+        c = contigs[int(rng.integers(len(contigs)))]
+        p = int(rng.integers(0, len(c) - 150 + 1))
+        codes = np.where(c[p : p + 150] >= 4, 0, c[p : p + 150]).astype(np.uint8)
+        sub = rng.random(150) < err
+        codes[sub] = (codes[sub] + rng.integers(1, 4, int(sub.sum()))) % 4
+        if rng.random() < 0.5:
+            codes = (codes[::-1] ^ 3).astype(np.uint8)
+        seqs.append(dna.decode(codes))
+    p = dict(bench, index=os.path.join(out_dir, "rdbg"),
+             signal=os.path.join(out_dir, "signal.fq"))
+    _copy_index(bench["index"], p["index"])
+    write_signal(bench["signal"], p["signal"], seqs)
+    return p
+
+
+def build_uniform_world(bench: dict, out_dir: str, n_pairs: int = 12_288,
+                        seed: int = 41) -> dict:
+    """Read pairs simulated uniformly over a genome of the bench world's
+    shape (64 DEL/INS on a 2 Mbp chr1, error 0.02, sv_region_reads
+    False), every read written as a signal record, over that genome's
+    own anchor index. Only the few reads near an SV hit an anchor k-mer,
+    so active-row compaction engages. Header and status are the bench
+    world's (same contig name and length)."""
+    from pansvr_tpu.anchor.builder import AnchorConfig, build_anchor_contigs
+    from pansvr_tpu.index.builder import build_index
+    from pansvr_tpu.index.store import save_index
+    from pansvr_tpu.utils.simulate import DictGenome, make_dataset
+
+    os.makedirs(out_dir, exist_ok=True)
+    ds = make_dataset(
+        seed=seed, n_sv=64, n_pairs=n_pairs, types=("DEL", "INS"),
+        chrom_lengths={"chr1": 2_000_000}, err_rate=0.02,
+        sv_region_reads=False)
+    contigs = list(build_anchor_contigs(
+        ds.vcf_records, DictGenome(ds.genome), AnchorConfig()))
+    p = dict(bench, index=os.path.join(out_dir, "rdbg"),
+             signal=os.path.join(out_dir, "signal.fq"))
+    save_index(build_index([(c.name, c.seq) for c in contigs],
+                           first_level_bases=12), p["index"])
+    write_signal(bench["signal"], p["signal"],
+                 [s for r in ds.reads for s in (r.seq1, r.seq2)])
     return p
 
 

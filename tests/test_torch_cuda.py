@@ -7,7 +7,9 @@ without jax:
 
 (--noconftest: tests/conftest.py configures jax). The kernels are held
 bit-exact against their plain PyTorch versions on the card, and the card
-engine against the CPU engine and the NumPy host aligner.
+engine against the CPU engine and the NumPy host aligner: its device
+collect, its depth-3 stream with the adaptive state after every batch,
+and a whole batch without a stream sync.
 """
 
 import numpy as np
@@ -108,3 +110,99 @@ def test_engine_card_matches_cpu_and_host(cuda_device):
                   r.sv_id, r.mapq, r.cigar) for r in want.results], i
         n_with += bool(want.results)
     assert n_with > len(seqs) // 3
+
+
+@pytest.fixture(scope="module")
+def small_world():
+    from pansvr_tpu.anchor.builder import AnchorConfig, build_anchor_contigs
+    from pansvr_tpu.index.builder import build_index
+    from pansvr_tpu.utils.simulate import DictGenome, make_dataset
+
+    ds = make_dataset(seed=40, n_sv=5, n_pairs=120, types=("DEL", "INS"),
+                      chrom_lengths={"chr1": 150_000})
+    contigs = list(build_anchor_contigs(
+        ds.vcf_records, DictGenome(ds.genome), AnchorConfig()))
+    idx = build_index([(c.name, c.seq) for c in contigs], first_level_bases=11)
+    return idx, list(ds.genome), [s for r in ds.reads for s in (r.seq1, r.seq2)]
+
+
+def _results(states):
+    return [[(r.align_score, r.chain_score, r.direction, r.ref_bg, r.sv_id,
+              r.mapq, r.cigar) for r in s.results] for s in states]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("comp,budget", [(0, None), (256, (16, 24))])
+def test_collect_card_matches_cpu(cuda_device, small_world, comp, budget):
+    from pansvr_tpu.align.host_align import OriResult
+    from pansvr_tpu_torch.align.engine import AlignEngine
+    from pansvr_tpu_torch.ops.chain import chain_batch, chain_extract_batch
+    from pansvr_tpu_torch.ops.collect import select_and_paths
+
+    idx, names, seqs = small_world
+    eng = AlignEngine(idx, ori_chrom_names=names, device="cpu")
+    prep = eng._prep_batch(seqs, [OriResult(unmapped=True)] * len(seqs))
+    es, _, rid = eng._front(
+        *(torch.from_numpy(prep[k]) for k in ("words", "lens2", "mask2")),
+        S0=prep["S0"], S=32, M=32, n_ext=9, nf_mult=10, comp=comp)
+    is_str = torch.from_numpy(prep["is_str2"])
+    if rid is not None:
+        is_str = is_str[rid.long().clamp(0, len(is_str) - 1)] & (rid < len(is_str))
+    cr = chain_batch(es.read_begin, es.read_end, es.ref_begin, es.ref_end,
+                     es.cov, es.seed_id, es.valid, is_str)
+    args = [cr.read_begin, cr.read_end, cr.ref_begin, cr.ref_end, cr.pre,
+            *chain_extract_batch(cr.dist, cr.pre, cr.valid),
+            torch.from_numpy(prep["act_pad"]), rid]
+    n_pad = prep["n_pad"]
+    NC, NP = budget or (n_pad, 2 * n_pad)
+    want = select_and_paths(*args, n_pad=n_pad, NC=NC, NP=NP)
+    got = select_and_paths(*(None if a is None else a.to(cuda_device)
+                             for a in args), n_pad=n_pad, NC=NC, NP=NP)
+    for f in want._fields:
+        assert torch.equal(getattr(want, f), getattr(got, f).cpu()), f
+    assert bool(want.over.any()) == bool(budget)
+
+
+@pytest.mark.cuda
+def test_stream_card_matches_cpu(cuda_device, small_world):
+    """align_stream at depth 3 (device collect) on the card: the CPU
+    engine's batches, in order, and the same adaptive state."""
+    from pansvr_tpu.align.host_align import OriResult
+    from pansvr_tpu_torch.align.engine import AlignEngine
+
+    idx, names, seqs = small_world
+    batches = [(seqs[i : i + 48], [OriResult(unmapped=True)] * 48)
+               for i in range(0, 240, 48)]
+    out = []
+    for dev in ("cpu", cuda_device):
+        eng = AlignEngine(idx, ori_chrom_names=names, device=dev)
+        got = [_results(s) for s in eng.align_stream(iter(batches))]
+        c = eng.cfg
+        out.append((got, (eng._k_spec, eng._comp_cap, c.nf_mult,
+                          c.mem_slots, c.collect_mult)))
+    a, b = out
+    assert a == b
+    assert sum(map(len, sum(a[0], []))) > 50
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("collect", ["device", "host"])
+def test_engine_batch_makes_no_stream_sync(cuda_device, small_world, collect):
+    """A whole batch (front, chain, collect, DP) with the sync debug mode
+    set to raise: no pageable copy, .cpu(), .item() or data-dependent
+    shape waits for the stream; only the engine's two event waits do."""
+    from pansvr_tpu.align.host_align import OriResult
+    from pansvr_tpu_torch.align.engine import AlignEngine, EngineConfig
+
+    idx, names, seqs = small_world
+    oris = [OriResult(unmapped=True)] * len(seqs)
+    eng = AlignEngine(idx, ori_chrom_names=names, device=cuda_device,
+                      config=EngineConfig(collect=collect))
+    eng.align_batch(seqs, oris)      # warm-up (kernel build, K growth)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = eng.align_batch(seqs, oris)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert any(s.results for s in got)
+    assert eng.prof["n_event_waits"] >= 4

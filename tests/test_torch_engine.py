@@ -1,7 +1,9 @@
 """The port's fc_aln engine and CLI on the CPU (plain kernel versions) vs
 the JAX package and the NumPy host aligner: identical alignments and
-identical BAM records. Also: the port imports no JAX, and asks for a card
-only where one is requested."""
+identical BAM records, with the adaptive layer (retier, device collect
+and its budget growth, engine_tune.json) taking the JAX engine's
+decisions. Also: the port imports no JAX, and asks for a card only where
+one is requested."""
 
 import os
 import subprocess
@@ -20,7 +22,7 @@ from pansvr_tpu.index.store import save_index
 from pansvr_tpu.io.bam import BamReader
 from pansvr_tpu.utils import dna
 from pansvr_tpu.utils.simulate import DictGenome, make_dataset
-from pansvr_tpu_torch.align.engine import AlignEngine
+from pansvr_tpu_torch.align.engine import AlignEngine, EngineConfig
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -57,6 +59,13 @@ def _mutated(idx, rng, n, L):
         codes = np.where(np.array(codes[:L]) >= 4, 0, codes[:L])
         seqs.append(dna.decode(codes.astype(np.uint8)))
     return seqs
+
+
+def _state(eng):
+    """The adaptive state both engines must agree on after every batch."""
+    c = eng.cfg
+    return (eng._k_spec, eng._comp_cap, c.mem_slots, c.max_seeds,
+            c.chain_bucket, c.nf_mult, c.collect_mult)
 
 
 def _cmp(sh, se, tag):
@@ -134,27 +143,36 @@ _NO_JAX_MAIN = ("import runpy, sys; sys.modules['jax'] = None; "
 @pytest.mark.parametrize("side_channel", [False, True],
                          ids=["native_emit", "ori_side_channel"])
 def test_fc_aln_cli_matches_jax_cli(cli_world, side_channel):
+    """Both CLIs give the same BAM records. The port's CLI runs twice on
+    one index directory: the first run starts without engine_tune.json
+    and writes it, the second loads it and gives the same records."""
     d = cli_world
     env = dict(os.environ, JAX_PLATFORMS="cpu")
+    tune = d / "rdbg" / "engine_tune.json"
     outs = {}
-    for pkg, launch, extra in (
+    for run, (pkg, launch, extra) in enumerate((
             ("pansvr_tpu", ["-m", "pansvr_tpu"], []),
-            ("pansvr_tpu_torch", ["-c", _NO_JAX_MAIN], ["--device", "cpu"])):
-        out = d / f"{pkg}_{side_channel}.bam"
-        ori = d / f"{pkg}_{side_channel}_ori.bam"
+            ("pansvr_tpu_torch", ["-c", _NO_JAX_MAIN], ["--device", "cpu"]),
+            ("pansvr_tpu_torch", ["-c", _NO_JAX_MAIN], ["--device", "cpu"]))):
+        out = d / f"{run}_{side_channel}.bam"
+        ori = d / f"{run}_{side_channel}_ori.bam"
         args = ["fc_aln", "-o", str(out), "-b", "128",
                 "-r", str(d / "status.sam"), *extra, str(d / "rdbg"),
                 str(d / "signal.fq"), str(d / "header.sam")]
         if side_channel:
             args[1:1] = ["-p", str(ori)]
+        if run == 1 and tune.exists():
+            tune.unlink()
         r = subprocess.run([sys.executable, *launch, *args], env=env,
                            cwd=REPO, capture_output=True, text=True)
         assert r.returncode == 0, r.stderr
-        outs[pkg] = (_records(str(out)),
+        assert tune.exists()
+        if pkg == "pansvr_tpu_torch":
+            assert ("engine tuning loaded" in r.stderr) == (run == 2), run
+        outs[run] = (_records(str(out)),
                      _records(str(ori)) if side_channel else None)
-    a, b = outs["pansvr_tpu"], outs["pansvr_tpu_torch"]
-    assert len(a[0]) > 0
-    assert a == b
+    assert len(outs[0][0]) > 0
+    assert outs[0] == outs[1] == outs[2]
 
 
 def test_signal_fq_matches_pipeline(cli_world):
@@ -205,3 +223,98 @@ def test_port_imports_no_jax():
                        capture_output=True, text=True)
     assert r.returncode == 0, r.stderr
     assert int(r.stdout.strip()) >= 10
+
+
+def test_retier_widens_shapes_on_repeat_rich_reads():
+    """Repeat-rich reads (a segment shared by three contigs) with the
+    fallback rate forced over the threshold: both engines widen M/S/K/nf
+    the same way, agree with each other on every batch, and after the
+    widening the port takes no host fallback and equals the host aligner
+    (tests/test_engine.py's retier test, held against the JAX engine)."""
+    rng = np.random.default_rng(7)
+    shared = "".join(rng.choice(list("ACGT"), 900))
+    contigs = []
+    for i in range(3):
+        base = "".join(rng.choice(list("ACGT"), 1400))
+        seq = base[:500] + shared + base[500:]
+        contigs.append(
+            (f"{i}_chr1_{1 + i * 4000}_{len(seq)}_DEL_100_200_"
+             f"{(i + 1) * 4000}_sv{i}", seq))
+    idx = build_index(contigs, first_level_bases=10)
+    reads = []
+    for _ in range(3 * 256):
+        _, seq = contigs[int(rng.integers(len(contigs)))]
+        p = int(rng.integers(400, 500 + 900 - 150))
+        reads.append(seq[p : p + 150])
+    oris = [OriResult(unmapped=True)] * len(reads)
+    eng = AlignEngine(idx, device="cpu")
+    jeng = JaxEngine(idx)
+    B = 256
+    for b in range(3):
+        for e in (eng, jeng):
+            e._tier_window += [(1024, 1024)] * 2  # simulated heavy batches
+        got = eng.align_batch(reads[b * B : (b + 1) * B], oris[:B])
+        want = jeng.align_batch(reads[b * B : (b + 1) * B], oris[:B])
+        assert _state(eng) == _state(jeng), b
+        assert eng._tier_window == jeng._tier_window, b
+        for i, (x, y) in enumerate(zip(want, got)):
+            _cmp(x, y, f"batch {b} read {i}")
+        assert all(s.results for s in got)
+    assert eng.cfg.mem_slots > 32, "retier never triggered"
+    assert eng._tier_window[-1][0] == 0
+    st = eng.align_batch(reads[:32], oris[:32])
+    host = HostAligner(idx)
+    for i in range(32):
+        _cmp(host.align_read(reads[i], oris[i]), st[i], f"r{i}")
+
+
+@pytest.mark.parametrize("budget", [None, (8, 16)],
+                         ids=["budgets", "tiny_budgets"])
+def test_device_collect_matches_host_collect(world, budget):
+    """collect="device" (select_and_paths + the path-mode glue) equals
+    collect="host" and the JAX engine's device collect; with lane
+    budgets small enough to spill, the spilled reads take the host path
+    and both engines grow collect_mult alike from the reported demand."""
+    ds, idx, host, _ = world
+    seqs = [s for r in ds.reads[:48] for s in (r.seq1, r.seq2)]
+    oris = [OriResult(unmapped=True) for _ in seqs]
+    names = list(ds.genome)
+    dev = AlignEngine(idx, ori_chrom_names=names, device="cpu",
+                      config=EngineConfig(collect="device"))
+    hst = AlignEngine(idx, ori_chrom_names=names, device="cpu",
+                      config=EngineConfig(collect="host"))
+    jeng = JaxEngine(idx, ori_chrom_names=names,
+                     config=JaxConfig(collect="device"))
+    if budget:
+        dev._collect_budgets = jeng._collect_budgets = lambda n_pad: budget
+    a = dev.align_batch(seqs, oris)
+    b = hst.align_batch(seqs, oris)
+    c = jeng.align_batch(seqs, oris)
+    for k in range(len(seqs)):
+        _cmp(b[k], a[k], f"read {k} host collect")
+        _cmp(c[k], a[k], f"read {k} jax")
+    assert _state(dev) == _state(jeng)
+    assert (dev.cfg.collect_mult > 1) == bool(budget)
+    assert dev.prof["n_fallback"] > 0 if budget else \
+        dev.prof["n_fallback"] == 0
+
+
+def test_tuning_roundtrip(tmp_path, world):
+    """save_tuning / load_tuning round trip, and a file written by either
+    package loads in the other."""
+    ds, idx, host, _ = world
+    eng = AlignEngine(idx, device="cpu")
+    eng.cfg.nf_mult, eng.cfg.collect_mult, eng._k_spec = 40, 4, 16
+    ours = str(tmp_path / "port.json")
+    eng.save_tuning(ours)
+    jeng = JaxEngine(idx)
+    jeng.cfg.nf_mult, jeng.cfg.mem_slots, jeng._k_spec = 20, 64, 32
+    theirs = str(tmp_path / "jax.json")
+    jeng.save_tuning(theirs)
+    for path, src in ((ours, eng), (theirs, jeng)):
+        e2 = AlignEngine(idx, device="cpu")
+        j2 = JaxEngine(idx)
+        assert e2.load_tuning(path) and j2.load_tuning(path)
+        assert _state(e2) == _state(j2) == _state(src)
+    assert not AlignEngine(idx, device="cpu").load_tuning(
+        str(tmp_path / "missing.json"))

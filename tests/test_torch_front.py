@@ -100,6 +100,39 @@ def test_seed_reads_flat_matches_jax(world, probe, M, nf_mult):
         assert ((jov > 0) & (jov < ts.FLAT_OVERFLOW)).any()
 
 
+@pytest.mark.parametrize("R,nf_mult", [(96, 32), (16, 32), (96, 1)],
+                         ids=["fits", "over_budget", "flat_overflow"])
+def test_seed_reads_flat_compact_matches_jax(world, R, nf_mult):
+    """compact_rows=R: the rid row map, BUDGET_OVERFLOW rows past the
+    budget and every per-row field equal the JAX front's."""
+    _, jd, td, _ = world
+    words, lens, mask, S0 = _batch(world, 38, n=80)
+    j, j_rid, j_over = js.seed_reads_flat(
+        jd, words, lens, mask, S0=S0, M=32, nf_mult=nf_mult,
+        probe="sortjoin", compact_rows=R)
+    t, t_rid, t_over = ts.seed_reads_flat(
+        td, torch.from_numpy(words), torch.from_numpy(lens),
+        torch.from_numpy(mask), S0=S0, M=32, nf_mult=nf_mult,
+        compact_rows=R)
+    rid = np.asarray(j_rid)
+    assert np.array_equal(rid, t_rid.numpy())
+    assert np.array_equal(np.asarray(j_over), t_over.numpy())
+    jov = np.asarray(j.n_overflow)
+    assert np.array_equal(jov, t.n_overflow.numpy())
+    ok = jov < ts.FLAT_OVERFLOW
+    for f in SB_FIELDS:
+        a, b = np.asarray(getattr(j, f)), getattr(t, f).numpy()
+        assert np.array_equal(a[ok], b[ok]), f
+    n_act = int((rid < len(words)).sum())
+    assert 0 < n_act <= R
+    if R == 16:
+        assert np.asarray(j_over).any() and n_act == R
+    else:
+        assert not np.asarray(j_over).any() and (rid[n_act:] == len(words)).all()
+    if nf_mult == 1:
+        assert (jov >= ts.FLAT_OVERFLOW).any()
+
+
 def _as_torch_sb(sb):
     return ts.SeedBatch(*(torch.from_numpy(np.array(a)) for a in sb))
 
