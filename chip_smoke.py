@@ -10,8 +10,13 @@ Phases, each timed; any failure raises (exit code != 0, no result line):
   3 kernels  per DP class, ~2,048 seeded problems: extd2 forward and
              traceback kernels vs their plain PyTorch versions on the card
              (bit-exact: 9 fields, direction bytes, ops, final i/j), 64 per
-             class vs the scalar NumPy oracle (score, CIGAR); kernel and
-             plain times from CUDA events
+             class vs the scalar NumPy oracle (score, CIGAR); times from
+             CUDA events: each kernel alone (raw launches, no wrapper), its
+             wrapper, its plain version; beside them the class's band
+             cells, the kernel's bound (K1: OPS_PER_CELL ops per band cell,
+             two cells per instruction in the packed 16-bit instance, at
+             the SM's issue rate, or its bytes; K2: one 32-byte sector per
+             diagonal walked plus its ops row) and its share
   4 world    the fc_aln benchmark world (seed 123, 250k pairs, ~379k
              signal reads) in a temporary directory
   5 fc_aln   the port's CLI entry point on the whole world at -b 8192 in
@@ -19,7 +24,8 @@ Phases, each timed; any failure raises (exit code != 0, no result line):
              (the defaults) and depth 1 with host collect; one warm-up pass
              each, then three timed passes each, taken in turns (each
              printed, the median is the result; phase timers, peak GPU
-             memory); the two give identical BAM records
+             memory, kernel launches per pass by DP shape); the two give
+             identical BAM records
   6 syncs    one 8,192-read batch per configuration under
              torch.cuda.set_sync_debug_mode("warn"): the stream syncs
              PyTorch reports, beside the engine's own event waits
@@ -38,8 +44,11 @@ Phases, each timed; any failure raises (exit code != 0, no result line):
  10 checks   both kernels launched in every fc_aln path above (counters
              reset just before each path and read just after); host
              fallback <= 5% of the reads with a k-mer hit on the bench
-             world; no JAX module imported
-Prints a {"kernels": [...]} line, then the last line
+             world; no module of JAX or of the JAX package (pansvr_tpu)
+             imported
+Prints a {"kernels": [...]} line (per kernel at the main shape: "ms" the
+wrapper's time, "kernel_ms" the raw launch's, "bound_ms" from this run's
+band cells), then the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
@@ -65,6 +74,17 @@ DP_SETS = ((48, 64, 64, ALN, 2048, 64), (96, 128, 128, ALN, 2048, 64),
            (176, 256, 256, ALN, 2048, 64), (272, 352, 256, ALN, 2048, 64),
            (576, 704, 192, SV, 256, 16))
 MAIN_SHAPE = (48, 64, 64)   # the main path's dominant DP chunk shape
+# K1's bound: ops of the recurrence per band cell (the adds, the four-way
+# max with its direction code, the four gap flags and the band blends of
+# csrc/extd2_fwd.cu), each one 32-bit lane instruction; the packed 16-bit
+# instance does two cells per instruction (vadd2 / vmins2 / DPX 16x2)
+OPS_PER_CELL = 30
+# lane instructions per clock per SM: 4 warp instructions issue per clock,
+# and the integer ALU pipe (64 lanes) co-issues with the FMA pipe that runs
+# IMAD (64 lanes), so no mix of integer instructions goes faster
+ISSUE_LANES_PER_SM = 128
+HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3 (NVIDIA data sheet)
+SECTOR = 32                   # bytes the card moves for one scattered read
 BATCH = 8192
 N_TIMED = 3          # timed fc_aln passes after the warm-up; median reported
 N_BAM_PARITY = 16_384
@@ -87,6 +107,20 @@ def card_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
     return out.splitlines()[0]
+
+
+def int_ops_per_s() -> tuple[float, float]:
+    """(integer lane instructions/s, max SM clock in MHz): SMs x
+    ISSUE_LANES_PER_SM x the maximum SM clock nvidia-smi reads (derived,
+    not a published figure)."""
+    import torch
+
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True).stdout.split()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return sms * ISSUE_LANES_PER_SM * mhz * 1e6, mhz
 
 
 def make_problems(rng, Q, T, n):
@@ -160,6 +194,28 @@ def cuda_ms(fn, reps):
     return a.elapsed_time(b) / reps
 
 
+def ptxas_summary(text: str) -> list[str]:
+    """'kernel<P,NR>: N registers, S bytes spilled' per kernel of nvcc's
+    -Xptxas -v output."""
+    import re
+
+    out, name, spill = [], None, 0
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '\w*?(extd2_(?:fwd|tb)_kernel)"
+                      r"(?:ILi(\d+)ELi(\d+)E)?", line)
+        if m:
+            name = m.group(1) + (f"<P={m.group(2)},NR={m.group(3)}>"
+                                 if m.group(2) else "")
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m:
+            spill = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out.append(f"{name}: {m.group(1)} registers, {spill} bytes spilled")
+            name, spill = None, 0
+    return out
+
+
 def max_abs_diff(x, y) -> int:
     import torch
 
@@ -176,6 +232,17 @@ def kernel_parity(dev):
     from pansvr_tpu_torch.ops import extd2_cuda as ec
     from pansvr_tpu_torch.ops.extd2 import (
         Extd2Params, ops_to_cigar_skip, plan, reference)
+
+    int_rate, mhz = int_ops_per_s()
+    log(f"kernel bounds: {card_line()}; integer issue {int_rate / 1e12:.2f} "
+        f"T lane-instructions/s (SMs x {ISSUE_LANES_PER_SM} lanes x {mhz:.0f} "
+        f"MHz max SM clock), HBM {HBM_BYTES_PER_S / 1e12:.2f} TB/s")
+
+    def bound(ops_s, n_bytes):
+        """(least ms, what bounds it) of an ops time and a byte count."""
+        b_s = n_bytes / HBM_BYTES_PER_S
+        return (max(ops_s, b_s) * 1e3,
+                "operations" if ops_s >= b_s else "bytes")
 
     rng = np.random.default_rng(2024)
     rows = []
@@ -194,7 +261,7 @@ def kernel_parity(dev):
         _, n_diag_pad, _, _ = plan(Q, T, W)
 
         got = ec.extd2_fwd(qc, ql, tc, tl, params, W)
-        ref = ec.extd2_fwd_plain(qc, ql, tc, tl, params, W)
+        ref, cells = ec.extd2_fwd_plain_cells(qc, ql, tc, tl, params, W)
         torch.cuda.synchronize()
         fwd_err = 0
         for f in got._fields:
@@ -242,19 +309,40 @@ def kernel_parity(dev):
             got.dmat, ql, tl, i0, j0, params, W, n_diag_pad, T), 5)
         tb_plain_ms = cuda_ms(lambda: ec.extd2_traceback_plain(
             got.dmat, ql, tl, i0, j0, params, W, n_diag_pad, T), 1)
+        fwd_k_ms = cuda_ms(ec.fwd_raw_launcher(qc, ql, tc, tl, params, W), 20)
+        tb_k_ms = cuda_ms(ec.tb_raw_launcher(got.dmat, ql, tl, i0, j0, params,
+                                             W, n_diag_pad, T), 20)
+        # bounds from this run's inputs: K1 computes `cells` band cells (two
+        # per instruction when packed) and writes every direction byte; K2
+        # reads one sector per diagonal it walks and writes its ops row
+        n_cells = int(cells.sum().item())
+        steps = int((ops != 3).sum().item())
+        state16 = ec.packed_state(params, W)
+        k1 = bound(OPS_PER_CELL * n_cells / (2 if state16 else 1) / int_rate,
+                   B * (Q + T + 2 * 4 + 9 * 4) + B * n_diag_pad * W)
+        k2 = bound(0.0, SECTOR * steps + B * n_diag_pad + B * (4 * 4 + 2 * 4))
         dead = torch.tensor([band_dies(len(q), len(t), params.w)
                              for q, t in pairs], device=dev)
         n_dead = int(dead.sum().item())
         row = dict(shape=(Q, T, W), n=B, band_dead=n_dead,
                    zdropped=int((zd & ~dead).sum().item()),
-                   fwd_err=fwd_err, tb_err=tb_err,
-                   fwd_ms=fwd_ms, fwd_plain_ms=fwd_plain_ms,
-                   tb_ms=tb_ms, tb_plain_ms=tb_plain_ms)
+                   fwd_err=fwd_err, tb_err=tb_err, cells=n_cells,
+                   tb_steps=steps, state16=state16,
+                   fwd_ms=fwd_ms, fwd_kernel_ms=fwd_k_ms,
+                   fwd_plain_ms=fwd_plain_ms, fwd_bound_ms=k1[0],
+                   fwd_bound_by=k1[1], tb_ms=tb_ms, tb_kernel_ms=tb_k_ms,
+                   tb_plain_ms=tb_plain_ms, tb_bound_ms=k2[0],
+                   tb_bound_by=k2[1])
         log(f"kernels {Q}x{T} W={W} w={params.w} B={B}: bit-exact vs plain "
             f"(fwd, tb), {n_oracle} vs NumPy oracle OK; score z-drops "
-            f"{row['zdropped']}, band-dead {n_dead}; fwd {fwd_ms:.3f} ms (plain "
-            f"{fwd_plain_ms:.1f} ms), tb {tb_ms:.3f} ms (plain "
-            f"{tb_plain_ms:.1f} ms)")
+            f"{row['zdropped']}, band-dead {n_dead}")
+        log(f"  K1 ({'int16x2' if row['state16'] else 'int32'} state): "
+            f"{n_cells} band cells, bound {k1[0]:.4g} ms ({k1[1]}); kernel "
+            f"{fwd_k_ms:.4f} ms = {k1[0] / fwd_k_ms:.1%} of bound; wrapper "
+            f"{fwd_ms:.4f} ms; plain {fwd_plain_ms:.1f} ms")
+        log(f"  K2: {steps} diagonals walked, bound {k2[0]:.4g} ms ({k2[1]}); "
+            f"kernel {tb_k_ms:.4f} ms = {k2[0] / tb_k_ms:.1%} of bound; "
+            f"wrapper {tb_ms:.4f} ms; plain {tb_plain_ms:.1f} ms")
         rows.append(row)
     if not any(r["zdropped"] for r in rows) or \
             not any(r["band_dead"] for r in rows):
@@ -299,9 +387,14 @@ def drop_tuning(w):
         os.remove(path)
 
 
+# launches by (kernel, Tmax, W) of every counted path, as counted() adds
+LAUNCH_SHAPES: dict = {}
+
+
 def counted(launches, name, fn):
     """Run fn with the kernel launch counters set to 0 just before and
-    read just after; the counts add up under launches[name]."""
+    read just after; the counts add up under launches[name] (and by DP
+    shape under LAUNCH_SHAPES[name])."""
     from pansvr_tpu_torch.ops import extd2_cuda as ec
 
     ec.reset_launches()
@@ -309,6 +402,9 @@ def counted(launches, name, fn):
     acc = launches.setdefault(name, dict.fromkeys(ec.LAUNCHES, 0))
     for k, v in ec.LAUNCHES.items():
         acc[k] += v
+    by = LAUNCH_SHAPES.setdefault(name, {})
+    for k, v in ec.LAUNCHES_BY_SHAPE.items():
+        by[k] = by.get(k, 0) + v
     return out
 
 
@@ -359,6 +455,11 @@ def bench_passes(w, tmp, dev, launches, n_reads, n_timed=N_TIMED):
             f"{r['peak_mib']:.1f} MiB")
         log(f"engine phases of the last {name} pass (s) and counts: "
             f"{r['prof']}")
+        per_pass = {f"{k} Tmax={t} W={W}": n / n_timed for (k, t, W), n
+                    in sorted(LAUNCH_SHAPES.get(f"bench_{name}", {}).items())}
+        log(f"kernel launches per {name} pass by DP class (target width "
+            f"Tmax: 64 = 48x64, 128 = 96x128, 256/352 = the read class's "
+            f"176x256 / 272x352): {per_pass}")
     (a, ra), (b, rb) = res.items()
     n = same_bam(ra["bam"], rb["bam"], f"fc_aln {a} vs {b}")
     log(f"{a} and {b}: {n} BAM records identical")
@@ -497,6 +598,7 @@ def main():
     secs["build"] = time.perf_counter() - t
     log(f"kernels built in {_build.build_seconds:.1f} s -> "
         f"{os.path.relpath(_build.library_path(), REPO)}")
+    log("ptxas (sm_90a): " + "; ".join(ptxas_summary(_build.build_log)))
 
     t = time.perf_counter()
     rows = kernel_parity(dev)
@@ -571,27 +673,36 @@ def main():
             f"host fallback {int(main_prof['n_fallback'])} > "
             f"{MAX_FALLBACK:.0%} of {hit} reads with a hit")
     jax_mods = sorted(m for m, mod in list(sys.modules.items())
-                      if m.split(".")[0] == "jax" and mod is not None)
+                      if m.split(".")[0] in ("jax", "pansvr_tpu")
+                      and mod is not None)
     if jax_mods:
-        raise AssertionError(f"the run imported JAX: {jax_mods[:5]}")
-    log("no JAX module was imported")
+        raise AssertionError(f"the run imported JAX or the JAX package: "
+                             f"{jax_mods[:5]}")
+    log("no module of JAX or of the JAX package (pansvr_tpu) was imported")
     secs["total"] = time.perf_counter() - t_start
     log("phase seconds: " + json.dumps({k: round(v, 3) for k, v in secs.items()}))
 
     main_row = next(r for r in rows if r["shape"] == MAIN_SHAPE)
+    main_launches = launches[f"bench_{CONFIGS[0][0]}"]
     print(json.dumps({"kernels": [
         {"name": "extd2_fwd", "route": "cuda",
          "source": "pansvr_tpu_torch/csrc/extd2_fwd.cu",
          "replaces": "pansvr_tpu/ops/extd2_pallas.py:74",
-         "launches": total["extd2_fwd"],
+         "launches": main_launches["extd2_fwd"],
          "max_abs_err": max(r["fwd_err"] for r in rows),
-         "ms": main_row["fwd_ms"], "plain_ms": main_row["fwd_plain_ms"]},
+         "ms": main_row["fwd_ms"], "kernel_ms": main_row["fwd_kernel_ms"],
+         "plain_ms": main_row["fwd_plain_ms"],
+         "bound_ms": main_row["fwd_bound_ms"],
+         "bound_by": main_row["fwd_bound_by"], "library_ms": None},
         {"name": "extd2_tb", "route": "cuda",
          "source": "pansvr_tpu_torch/csrc/extd2_tb.cu",
          "replaces": "pansvr_tpu/ops/extd2_pallas.py:484",
-         "launches": total["extd2_tb"],
+         "launches": main_launches["extd2_tb"],
          "max_abs_err": max(r["tb_err"] for r in rows),
-         "ms": main_row["tb_ms"], "plain_ms": main_row["tb_plain_ms"]},
+         "ms": main_row["tb_ms"], "kernel_ms": main_row["tb_kernel_ms"],
+         "plain_ms": main_row["tb_plain_ms"],
+         "bound_ms": main_row["tb_bound_ms"],
+         "bound_by": main_row["tb_bound_by"], "library_ms": None},
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

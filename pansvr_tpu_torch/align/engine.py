@@ -33,7 +33,8 @@ The adaptive state (speculative K, compaction budget, lane budgets,
 collect budgets, retier window) takes the JAX engine's decisions on the
 same statistics; each batch carries its own shapes in its `pend`, so a
 widening made for batch N never changes how an in-flight batch N+1 is
-unpacked. Equality with pansvr_tpu.align.host_align.HostAligner is the
+unpacked. Equality with align.host_align.HostAligner (the port's copy
+of pansvr_tpu/align/host_align.py) is the
 contract; reads over the device caps (lane budgets, seeds, chain width,
 read length) take that exact host path. The native glue library is
 required.
@@ -57,8 +58,15 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from pansvr_tpu.align import native_glue
-from pansvr_tpu.align.host_align import (
+from ..index.builder import RdBGIndex
+from ..index.device import to_device
+from ..ops import extd2_cuda
+from ..ops.chain import chain_batch, chain_extract_batch
+from ..ops.collect import select_and_paths
+from ..ops.extd2 import Extd2Params, plan
+from ..utils import dna
+from . import native_glue
+from .host_align import (
     LEN_KMER,
     MIN_STR_DETECT_LEN,
     SEED_STEP,
@@ -69,14 +77,6 @@ from pansvr_tpu.align.host_align import (
     OriResult,
     SingleEndState,
 )
-from pansvr_tpu.index.builder import RdBGIndex
-from pansvr_tpu.utils import dna
-
-from ..index.device import to_device
-from ..ops import extd2_cuda
-from ..ops.chain import chain_batch, chain_extract_batch
-from ..ops.collect import select_and_paths
-from ..ops.extd2 import Extd2Params, plan
 from ..ops.seeding import (
     BUDGET_OVERFLOW,
     FLAT_OVERFLOW,
@@ -260,7 +260,7 @@ def _log(msg: str) -> None:
 
 class AlignEngine:
     """Batched aligner on one device; produces SingleEndState lists
-    compatible with pansvr_tpu.align.host_align.PEScorer, or encoded BAM
+    compatible with align.host_align.PEScorer, or encoded BAM
     record blobs with set_native_emit."""
 
     def __init__(self, idx: RdBGIndex, params: AlignParams | None = None,
@@ -350,7 +350,7 @@ class AlignEngine:
         if not hasattr(self._glue_lib, "glue_pe_emit"):
             raise RuntimeError("native emit requires libpansvr_glue with "
                                "glue_pe_emit (tools/build_native.sh)")
-        from pansvr_tpu.align.host_align import PEScorer
+        from .host_align import PEScorer
 
         self._emit_ctx = emit_ctx
         self._emit_pe = PEScorer(self.host, emit_ctx.max_isize,
@@ -1113,8 +1113,8 @@ class AlignEngine:
         """Batch -> encoded BAM record blob. Pairs with a host-path read
         are paired and encoded here and spliced in pair order by
         glue_pe_emit; everything else is paired and encoded in C++."""
-        from pansvr_tpu.align.bam_out import emit_pair
-        from pansvr_tpu.io.bam import _encode_record
+        from .bam_out import emit_pair
+        from ..io.bam import _encode_record
 
         ec = self._emit_ctx
         names, quals, comments = pend["aux"]

@@ -30,15 +30,13 @@ def run_fc_aln(args, config=None):
     """signal FASTQ + index -> realigned BAM; returns the engine (its
     .prof holds the phase timers and counts). `config`: an
     align.engine.EngineConfig (default: its defaults)."""
-    from pansvr_tpu.align import native_glue
-    from pansvr_tpu.align.bam_out import EmitContext, min_filter_score
-    from pansvr_tpu.align.host_align import PEScorer
-    from pansvr_tpu.cli.main import _run_aln_stream
-    from pansvr_tpu.index.store import load_any
-    from pansvr_tpu.io.bam import BamHeader, BamWriter
-    from pansvr_tpu.signal.extract import SignalStats
-
+    from ..align import native_glue
+    from ..align.bam_out import EmitContext, min_filter_score
     from ..align.engine import AlignEngine
+    from ..align.host_align import PEScorer
+    from ..index.store import load_any
+    from ..io.bam import BamHeader, BamWriter
+    from ..signal.extract import SignalStats
     from ..signal_fq import parse_signal_comment, read_signal_fastq
 
     idx = load_any(args.index_dir)
@@ -121,6 +119,68 @@ def run_fc_aln(args, config=None):
         print(f"[fc_aln] engine phases (s) and counts: {phases}",
               file=sys.stderr)
     return eng
+
+
+def _run_aln_stream(chunks_a, eng, pe, writer, ori_writer, header, filt,
+                    batch_stream):
+    """Consume align_stream batches, PE-score and write BAM records.
+
+    Emission runs on a single writer thread pipelined one batch behind
+    the engine (the reference's kt_pipeline step2 analog,
+    read_realignment.cpp:165-176): the Python emit work overlaps the
+    engine's GIL-released device waits, and single-thread writes keep
+    BAM record order deterministic.
+
+    With native emit enabled on the engine, align_stream yields encoded
+    record blobs straight from C++ (byte-identical to this path,
+    tests/test_native_emit.py) and only the BGZF write remains here."""
+    from collections import deque
+    from concurrent.futures import ThreadPoolExecutor
+
+    from ..align.bam_out import emit_ori_pair, emit_pair
+
+    if getattr(eng, "_emit_ctx", None) is not None and ori_writer is None:
+        for blob in eng.align_stream(batch_stream()):
+            writer.write_blob(blob)
+        writer.close()
+        return
+
+    def emit_chunk(chunk, states):
+        for k in range(0, len(chunk) - 1, 2):
+            pr = pe.pair(states[k], states[k + 1])
+            if ori_writer is not None:
+                for rec in emit_ori_pair(
+                    pr, states[k], states[k + 1],
+                    chunk[k][0], chunk[k][1], chunk[k][2],
+                    chunk[k + 1][1], chunk[k + 1][2],
+                    chunk[k][3], chunk[k + 1][3], header, filt,
+                    header.ref_names,
+                ):
+                    ori_writer.write(rec)
+            if not pr.gain_better:
+                continue
+            for rec in emit_pair(
+                eng.host, pr, states[k], states[k + 1],
+                chunk[k][0], chunk[k][1], chunk[k][2],
+                chunk[k + 1][1], chunk[k + 1][2],
+                chunk[k][3], chunk[k + 1][3], header,
+            ):
+                writer.write(rec)
+
+    pool = ThreadPoolExecutor(1)
+    futs: deque = deque()
+    try:
+        for chunk, states in zip(chunks_a, eng.align_stream(batch_stream())):
+            futs.append(pool.submit(emit_chunk, chunk, states))
+            while len(futs) > 2:
+                futs.popleft().result()
+        while futs:
+            futs.popleft().result()
+    finally:
+        pool.shutdown(wait=True)
+    writer.close()
+    if ori_writer is not None:
+        ori_writer.close()
 
 
 def parse_args(argv):

@@ -14,7 +14,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from pansvr_tpu.index.builder import RdBGIndex
+from .builder import RdBGIndex
 
 PAD_WORDS = 128  # zero words on both sides of uni_words_pad; must exceed
                  # the largest extension step count (99 for the 1600

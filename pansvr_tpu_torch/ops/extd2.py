@@ -96,10 +96,10 @@ def state_fits_int8(params: Extd2Params) -> bool:
 
 
 def reference(q: np.ndarray, t: np.ndarray, params: Extd2Params):
-    """Scalar NumPy oracle of the kernels (pansvr_tpu.ops.ksw2_ref.extd2,
+    """Scalar NumPy oracle of the kernels (ops/ksw2_ref.py extd2,
     bit-exact with the reference SSE kernel): an Ez with score, max,
     zdropped and the CIGAR."""
-    from pansvr_tpu.ops import ksw2_ref
+    from . import ksw2_ref
 
     return ksw2_ref.extd2(q, t, match=params.match, mismatch=params.mismatch,
                           q=params.q, e=params.e, q2=params.q2, e2=params.e2,

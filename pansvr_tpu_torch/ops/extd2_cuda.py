@@ -31,19 +31,30 @@ from .extd2 import (
     check_window,
     leading_gap_delta,
     plan,
+    state_fits_int8,
     window_origin,
 )
 
-# kernel launches since the last reset (a wrapper counts where it launches)
+# kernel launches since the last reset (a wrapper counts where it launches),
+# in all and by DP shape: {(kernel, Tmax, W): n}
 LAUNCHES = {"extd2_fwd": 0, "extd2_tb": 0}
+LAUNCHES_BY_SHAPE: dict = {}
 
 _I32 = torch.int32
 _I32MAX = 0x7FFFFFFF
+MAX_W = 256     # widest window the forward kernel takes (8 row slots a lane)
 
 
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+    LAUNCHES_BY_SHAPE.clear()
+
+
+def _count(kernel: str, Tmax: int, W: int) -> None:
+    LAUNCHES[kernel] += 1
+    key = (kernel, Tmax, W)
+    LAUNCHES_BY_SHAPE[key] = LAUNCHES_BY_SHAPE.get(key, 0) + 1
 
 
 class Extd2Out(NamedTuple):
@@ -79,6 +90,13 @@ def _extract(arr, pos, o_r, W):
 def extd2_fwd_plain(q, ql, t, tl, params: Extd2Params, W: int) -> Extd2Out:
     """Anti-diagonal loop over (B, W) window tensors; the exact semantics
     of the Pallas forward kernel (int32 state)."""
+    return extd2_fwd_plain_cells(q, ql, t, tl, params, W)[0]
+
+
+def extd2_fwd_plain_cells(q, ql, t, tl, params: Extd2Params, W: int):
+    """extd2_fwd_plain, plus the (B,) int64 count of band cells each
+    problem's sweep computed (the 16-padded band over the diagonals it
+    reached): the work the kernel's bound is counted from."""
     B, Qmax = q.shape
     Tmax = t.shape[1]
     dev = q.device
@@ -110,6 +128,7 @@ def extd2_fwd_plain(q, ql, t, tl, params: Extd2Params, W: int) -> Extd2Out:
     mqe, mqe_t, mte, mte_q = col(NEG_INF), col(-1), col(NEG_INF), col(-1)
     score, zdropped = col(NEG_INF), col(0)
     dmat = torch.zeros((B, n_diag_pad, W), dtype=torch.uint8, device=dev)
+    cells = torch.zeros(B, dtype=torch.int64, device=dev)
 
     n_act = int((ql + tl).max().item()) - 1 if B else 0
     n_act = min(max(_ceil16(n_act), 16), n_diag_pad)
@@ -246,11 +265,12 @@ def extd2_fwd_plain(q, ql, t, tl, params: Extd2Params, W: int) -> Extd2Out:
         score = torch.where(score_hit, _extract(H, tl - 1, o_r, W), score)
 
         dmat[:, r, :] = torch.where(wmask, d, c(0)).to(torch.uint8)
+        cells += wmask.sum(1)
         last_st = torch.where(active, st, last_st)
         last_en = torch.where(active, en, last_en)
 
     return Extd2Out(score, mqe, mqe_t, mte, mte_q, ez_max, ez_max_q,
-                    ez_max_t, zdropped > 0, dmat)
+                    ez_max_t, zdropped > 0, dmat), cells
 
 
 def extd2_traceback_plain(dmat, ql, tl, i0, j0, params: Extd2Params, W: int,
@@ -322,18 +342,22 @@ def _stream_ptr(dev) -> int:
     return torch.cuda.current_stream(dev).cuda_stream
 
 
-def extd2_fwd(q, ql, t, tl, params: Extd2Params = Extd2Params(),
-              W: int = 256) -> Extd2Out:
-    """q (B, Qmax) / t (B, Tmax) codes 0..3 (any int dtype), ql/tl (B,)
-    lengths (>= 1). W: window width, a multiple of 16 covering the band."""
-    check_window(params, t.shape[1], W)
-    if not _on_cuda(q, ql, t, tl):
-        return extd2_fwd_plain(q, ql, t, tl, params, W)
-    from .._build import check, load_kernels
+def packed_state(params: Extd2Params, W: int) -> bool:
+    """Whether the forward kernel runs packed 16-bit state: the profile
+    is int8-bounded (as the JAX package's state8) and the window is whole
+    64-row register pairs; else its int32 instance."""
+    return state_fits_int8(params) and W % 64 == 0
 
-    if W % 32 or not 32 <= W <= 1024:
-        raise ValueError(f"CUDA extd2_fwd needs W % 32 == 0, 32 <= W <= 1024 "
-                         f"(got {W})")
+
+def _fwd_args(q, ql, t, tl, params: Extd2Params, W: int):
+    """Checks, output allocation and the C argument list of one forward
+    launch on CUDA tensors: (lib, args, out, dmat, the converted inputs
+    the argument list points into)."""
+    from .._build import load_kernels
+
+    if W % 32 or not 32 <= W <= MAX_W:
+        raise ValueError(f"CUDA extd2_fwd needs W % 32 == 0, 32 <= W <= "
+                         f"{MAX_W} (got {W})")
     B, Qmax = q.shape
     Tmax = t.shape[1]
     if t.shape[0] != B or ql.shape != (B,) or tl.shape != (B,):
@@ -347,17 +371,71 @@ def extd2_fwd(q, ql, t, tl, params: Extd2Params = Extd2Params(),
     qlc = ql.to(_I32).contiguous()
     tlc = tl.to(_I32).contiguous()
     out = torch.empty((9, B), dtype=_I32, device=dev)
-    dmat = torch.zeros((B, n_diag_pad, W), dtype=torch.uint8, device=dev)
+    # the kernel writes every byte (zeros past each problem's sweep)
+    dmat = torch.empty((B, n_diag_pad, W), dtype=torch.uint8, device=dev)
     pn = params.normalized()
-    err = lib.pansvr_extd2_fwd(
-        qc.data_ptr(), qlc.data_ptr(), tc.data_ptr(), tlc.data_ptr(),
-        out.data_ptr(), dmat.data_ptr(), B, Qmax, Tmax, W, t_pad, n_diag_pad,
-        params.match, params.mismatch, pn.q, pn.e, pn.q2, pn.e2, params.w,
-        params.zdrop, params.long_thres, params.long_diff, _stream_ptr(dev))
-    check(lib, err, "extd2_fwd launch")
-    LAUNCHES["extd2_fwd"] += 1
+    state16 = int(packed_state(params, W))
+    keep = (qc, tc, qlc, tlc)      # alive as long as the argument list
+    args = (qc.data_ptr(), qlc.data_ptr(), tc.data_ptr(), tlc.data_ptr(),
+            out.data_ptr(), dmat.data_ptr(), B, Qmax, Tmax, W, t_pad,
+            n_diag_pad, params.match, params.mismatch, pn.q, pn.e, pn.q2,
+            pn.e2, params.w, params.zdrop, params.long_thres,
+            params.long_diff, state16, _stream_ptr(dev))
+    return lib, args, out, dmat, keep
+
+
+def extd2_fwd(q, ql, t, tl, params: Extd2Params = Extd2Params(),
+              W: int = 256) -> Extd2Out:
+    """q (B, Qmax) / t (B, Tmax) codes 0..3 (any int dtype), ql/tl (B,)
+    lengths (>= 1). W: window width, a multiple of 16 covering the band."""
+    check_window(params, t.shape[1], W)
+    if not _on_cuda(q, ql, t, tl):
+        return extd2_fwd_plain(q, ql, t, tl, params, W)
+    from .._build import check
+
+    lib, args, out, dmat, _ = _fwd_args(q, ql, t, tl, params, W)
+    check(lib, lib.pansvr_extd2_fwd(*args), "extd2_fwd launch")
+    _count("extd2_fwd", t.shape[1], W)
     return Extd2Out(out[0], out[1], out[2], out[3], out[4], out[5], out[6],
                     out[7], out[8] > 0, dmat)
+
+
+def fwd_raw_launcher(q, ql, t, tl, params: Extd2Params, W: int):
+    """A function that launches the forward kernel alone on CUDA tensors
+    (inputs converted and outputs allocated once, here), for timing the
+    kernel without its wrapper. Its launches are not counted."""
+    from .._build import check
+
+    check_window(params, t.shape[1], W)
+    lib, args, _, _, keep = _fwd_args(q, ql, t, tl, params, W)
+
+    def launch(_keep=keep):
+        check(lib, lib.pansvr_extd2_fwd(*args), "extd2_fwd launch")
+    return launch
+
+
+def _tb_args(dmat, ql, tl, i0, j0, params: Extd2Params, W: int,
+             n_diag_pad: int, Tmax: int):
+    """Checks, output allocation and the C argument list of one traceback
+    launch on CUDA tensors: (lib, args, ops, fin, the converted inputs the
+    argument list points into)."""
+    from .._build import load_kernels
+
+    if dmat.dtype != torch.uint8:
+        raise TypeError(f"dmat must be uint8, got {dmat.dtype}")
+    B = dmat.shape[0]
+    if any(a.shape != (B,) for a in (ql, tl, i0, j0)):
+        raise ValueError("ql, tl, i0, j0 must be (B,) for dmat of B problems")
+    lib = load_kernels()
+    dev = dmat.device
+    t_pad = max(_ceil16(Tmax), W)
+    keep = [dmat.contiguous()] + [a.to(_I32).contiguous()
+                                  for a in (ql, tl, i0, j0)]
+    ops = torch.empty((B, n_diag_pad), dtype=torch.int8, device=dev)
+    fin = torch.empty((2, B), dtype=_I32, device=dev)
+    args = (*(a.data_ptr() for a in keep), ops.data_ptr(), fin.data_ptr(),
+            B, W, n_diag_pad, t_pad, params.w, _stream_ptr(dev))
+    return lib, args, ops, fin, keep
 
 
 def extd2_traceback(dmat, ql, tl, i0, j0, params: Extd2Params, W: int,
@@ -370,23 +448,23 @@ def extd2_traceback(dmat, ql, tl, i0, j0, params: Extd2Params, W: int,
     if not _on_cuda(dmat, ql, tl, i0, j0):
         return extd2_traceback_plain(dmat, ql, tl, i0, j0, params, W,
                                      n_diag_pad, Tmax)
-    from .._build import check, load_kernels
+    from .._build import check
 
-    if dmat.dtype != torch.uint8:
-        raise TypeError(f"dmat must be uint8, got {dmat.dtype}")
-    B = dmat.shape[0]
-    if any(a.shape != (B,) for a in (ql, tl, i0, j0)):
-        raise ValueError("ql, tl, i0, j0 must be (B,) for dmat of B problems")
-    lib = load_kernels()
-    dev = dmat.device
-    t_pad = max(_ceil16(Tmax), W)
-    dm = dmat.contiguous()
-    args = [a.to(_I32).contiguous() for a in (ql, tl, i0, j0)]
-    ops = torch.empty((B, n_diag_pad), dtype=torch.int8, device=dev)
-    fin = torch.empty((2, B), dtype=_I32, device=dev)
-    err = lib.pansvr_extd2_tb(
-        dm.data_ptr(), *(a.data_ptr() for a in args), ops.data_ptr(),
-        fin.data_ptr(), B, W, n_diag_pad, t_pad, params.w, _stream_ptr(dev))
-    check(lib, err, "extd2_traceback launch")
-    LAUNCHES["extd2_tb"] += 1
+    lib, args, ops, fin, _ = _tb_args(dmat, ql, tl, i0, j0, params, W,
+                                      n_diag_pad, Tmax)
+    check(lib, lib.pansvr_extd2_tb(*args), "extd2_traceback launch")
+    _count("extd2_tb", Tmax, W)
     return ops, fin[0], fin[1]
+
+
+def tb_raw_launcher(dmat, ql, tl, i0, j0, params: Extd2Params, W: int,
+                    n_diag_pad: int, Tmax: int):
+    """The traceback kernel alone, as fwd_raw_launcher; not counted."""
+    from .._build import check
+
+    lib, args, _, _, keep = _tb_args(dmat, ql, tl, i0, j0, params, W,
+                                     n_diag_pad, Tmax)
+
+    def launch(_keep=keep):
+        check(lib, lib.pansvr_extd2_tb(*args), "extd2_traceback launch")
+    return launch

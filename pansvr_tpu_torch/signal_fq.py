@@ -1,14 +1,13 @@
 """Signal FASTQ reading for the port's fc_aln.
 
-The same two functions as pansvr_tpu.pipeline (read_signal_fastq,
-parse_signal_comment), kept here because pansvr_tpu.pipeline imports the
-JAX engine at module level; tests/test_torch_engine.py holds the two
-copies equal.
+The same two functions as pansvr_tpu/pipeline.py (read_signal_fastq,
+parse_signal_comment); tests/test_torch_engine.py holds the two copies
+equal.
 """
 
 from __future__ import annotations
 
-from pansvr_tpu.align.host_align import OriResult
+from .align.host_align import OriResult
 
 
 def parse_signal_comment(comment: str):

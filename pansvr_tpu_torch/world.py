@@ -3,8 +3,8 @@
 Same recipe and parameters as bench.py's build_bench_world (seed 123,
 64 DEL/INS SVs on a 2 Mbp chr1, 250,000 read pairs at error rate 0.02,
 first-level 12 index, signal FASTQ extracted as the reference's
-fc_signal -D -U does: about 379k signal reads), built by calling the same
-pansvr_tpu functions, without bench.py's JAX compile-cache setup. The
+fc_signal -D -U does: about 379k signal reads), built by the port's
+copies of the same host functions (anchor, index, signal, simulate). The
 index is written as a store directory (the fc_aln INDEX_DIR positional).
 
 Two derived worlds drive the engine's adaptive paths:
@@ -29,13 +29,11 @@ def build_bench_world(out_dir: str, n_pairs: int = 250_000) -> dict:
     """Write the BAM, index, header, status and signal files into
     out_dir; returns their paths. A smaller n_pairs gives a quick world
     of the same shape for rehearsals on the CPU."""
-    from pansvr_tpu.anchor.builder import AnchorConfig, build_anchor_contigs
-    from pansvr_tpu.index.builder import build_index
-    from pansvr_tpu.index.store import save_index
-    from pansvr_tpu.signal.extract import (
-        SignalOptions, compute_stats, extract_signal)
-    from pansvr_tpu.utils.simulate import (
-        DictGenome, make_dataset, write_sim_bam)
+    from .anchor.builder import AnchorConfig, build_anchor_contigs
+    from .index.builder import build_index
+    from .index.store import save_index
+    from .signal.extract import SignalOptions, compute_stats, extract_signal
+    from .utils.simulate import DictGenome, make_dataset, write_sim_bam
 
     os.makedirs(out_dir, exist_ok=True)
     p = {k: os.path.join(out_dir, f) for k, f in (
@@ -98,7 +96,7 @@ def build_overflow_world(bench: dict, out_dir: str, n_reads: int = 32_768,
     pool of 10: the first batch overflows it for far more reads than
     max(64, active / 8). Returns the bench paths with this world's
     index copy and signal FASTQ."""
-    from pansvr_tpu.utils import dna
+    from .utils import dna
 
     os.makedirs(out_dir, exist_ok=True)
     idx = load_index(bench["index"])
@@ -130,10 +128,10 @@ def build_uniform_world(bench: dict, out_dir: str, n_pairs: int = 12_288,
     own anchor index. Only the few reads near an SV hit an anchor k-mer,
     so active-row compaction engages. Header and status are the bench
     world's (same contig name and length)."""
-    from pansvr_tpu.anchor.builder import AnchorConfig, build_anchor_contigs
-    from pansvr_tpu.index.builder import build_index
-    from pansvr_tpu.index.store import save_index
-    from pansvr_tpu.utils.simulate import DictGenome, make_dataset
+    from .anchor.builder import AnchorConfig, build_anchor_contigs
+    from .index.builder import build_index
+    from .index.store import save_index
+    from .utils.simulate import DictGenome, make_dataset
 
     os.makedirs(out_dir, exist_ok=True)
     ds = make_dataset(
@@ -179,20 +177,20 @@ def read_batch(signal_fq: str, n_reads: int):
 
 
 def header_names(header_sam: str) -> list[str]:
-    from pansvr_tpu.io.bam import BamHeader
+    from .io.bam import BamHeader
 
     return BamHeader.from_sam_text(open(header_sam).read()).ref_names
 
 
 def load_index(index_dir: str):
-    from pansvr_tpu.index.store import load_any
+    from .index.store import load_any
 
     return load_any(index_dir)
 
 
 def bam_records(path: str) -> list:
     """Comparable tuples of every record of a BAM file."""
-    from pansvr_tpu.io.bam import BamReader
+    from .io.bam import BamReader
 
     return [(r.name, r.flag, r.tid, r.pos, r.mapq, tuple(r.cigar),
              tuple(map(tuple, r.tags))) for r in BamReader(path)]

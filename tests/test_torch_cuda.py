@@ -1,7 +1,7 @@
 """Port tests that need a CUDA card (marked `cuda`; they skip elsewhere).
 
-This file imports no jax, so it runs on a machine with the card but
-without jax:
+This file imports neither jax nor the JAX package (the port's own host
+modules build its worlds), so it runs on a machine with the card alone:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
@@ -49,26 +49,49 @@ def _problems(rng, Q, T, n):
     return [torch.from_numpy(a) for a in (q, ql, t, tl)]
 
 
+# a profile outside state_fits_int8: the forward kernel's int32 state
+WIDE = Extd2Params(match=4, mismatch=-60, q=30, e=2, q2=60, e2=1, w=40,
+                   zdrop=200)
+SV = Extd2Params(match=2, mismatch=-10, q=24, e=2, q2=32, e2=1, w=132,
+                 zdrop=132)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("Q,T,W", [(48, 64, 64), (96, 128, 128),
-                                   (176, 256, 256), (272, 352, 256)])
-def test_kernels_match_plain(cuda_device, Q, T, W):
+@pytest.mark.parametrize("Q,T,W,params", [
+    (48, 64, 64, ALN), (96, 128, 128, ALN), (176, 256, 256, ALN),
+    (272, 352, 256, ALN), (576, 704, 192, SV), (96, 160, 96, WIDE),
+    (176, 256, 128, WIDE)], ids=["48x64", "96x128", "176x256", "272x352",
+                                 "sv_576x704", "int32_W96", "int32_W128"])
+def test_kernels_match_plain(cuda_device, Q, T, W, params):
     q, ql, t, tl = _problems(np.random.default_rng(Q), Q, T, 512)
-    cpu = ec.extd2_fwd(q, ql, t, tl, ALN, W)
+    cpu = ec.extd2_fwd(q, ql, t, tl, params, W)
     ec.reset_launches()
-    gpu = ec.extd2_fwd(*(a.to(cuda_device) for a in (q, ql, t, tl)), ALN, W)
+    # the dmat memory comes uninitialised: poison the allocator's blocks
+    torch.full((1 << 26,), 0xA5, dtype=torch.uint8, device=cuda_device)
+    gpu = ec.extd2_fwd(*(a.to(cuda_device) for a in (q, ql, t, tl)), params, W)
     for f in cpu._fields:
         assert torch.equal(getattr(cpu, f), getattr(gpu, f).cpu()), f
     i0 = torch.where(~cpu.zdropped, tl - 1, cpu.max_t).to(torch.int32)
     j0 = torch.where(~cpu.zdropped, ql - 1, cpu.max_q).to(torch.int32)
     _, n_diag_pad, _, _ = plan(Q, T, W)
-    want = ec.extd2_traceback(cpu.dmat, ql, tl, i0, j0, ALN, W, n_diag_pad, T)
+    want = ec.extd2_traceback(cpu.dmat, ql, tl, i0, j0, params, W,
+                              n_diag_pad, T)
     got = ec.extd2_traceback(*(a.to(cuda_device) for a in
                                (gpu.dmat, ql, tl, i0, j0)),
-                             ALN, W, n_diag_pad, T)
+                             params, W, n_diag_pad, T)
     for a, b in zip(want, got):
         assert torch.equal(a, b.cpu())
     assert ec.LAUNCHES == {"extd2_fwd": 1, "extd2_tb": 1}
+    assert ec.LAUNCHES_BY_SHAPE == {("extd2_fwd", T, W): 1,
+                                    ("extd2_tb", T, W): 1}
+
+
+@pytest.mark.cuda
+def test_forward_refuses_windows_it_has_no_instance_for(cuda_device):
+    q, ql, t, tl = (a.to(cuda_device) for a in
+                    _problems(np.random.default_rng(2), 48, 512, 4))
+    with pytest.raises(ValueError, match="W % 32"):
+        ec.extd2_fwd(q, ql, t, tl, ALN, 320)
 
 
 @pytest.mark.cuda
@@ -80,10 +103,10 @@ def test_wrapper_refuses_mixed_devices(cuda_device):
 
 @pytest.mark.cuda
 def test_engine_card_matches_cpu_and_host(cuda_device):
-    from pansvr_tpu.align.host_align import OriResult
-    from pansvr_tpu.anchor.builder import AnchorConfig, build_anchor_contigs
-    from pansvr_tpu.index.builder import build_index
-    from pansvr_tpu.utils.simulate import DictGenome, make_dataset
+    from pansvr_tpu_torch.align.host_align import OriResult
+    from pansvr_tpu_torch.anchor.builder import AnchorConfig, build_anchor_contigs
+    from pansvr_tpu_torch.index.builder import build_index
+    from pansvr_tpu_torch.utils.simulate import DictGenome, make_dataset
     from pansvr_tpu_torch.align.engine import AlignEngine
 
     ds = make_dataset(seed=40, n_sv=5, n_pairs=120, types=("DEL", "INS"),
@@ -114,9 +137,9 @@ def test_engine_card_matches_cpu_and_host(cuda_device):
 
 @pytest.fixture(scope="module")
 def small_world():
-    from pansvr_tpu.anchor.builder import AnchorConfig, build_anchor_contigs
-    from pansvr_tpu.index.builder import build_index
-    from pansvr_tpu.utils.simulate import DictGenome, make_dataset
+    from pansvr_tpu_torch.anchor.builder import AnchorConfig, build_anchor_contigs
+    from pansvr_tpu_torch.index.builder import build_index
+    from pansvr_tpu_torch.utils.simulate import DictGenome, make_dataset
 
     ds = make_dataset(seed=40, n_sv=5, n_pairs=120, types=("DEL", "INS"),
                       chrom_lengths={"chr1": 150_000})
@@ -134,7 +157,7 @@ def _results(states):
 @pytest.mark.cuda
 @pytest.mark.parametrize("comp,budget", [(0, None), (256, (16, 24))])
 def test_collect_card_matches_cpu(cuda_device, small_world, comp, budget):
-    from pansvr_tpu.align.host_align import OriResult
+    from pansvr_tpu_torch.align.host_align import OriResult
     from pansvr_tpu_torch.align.engine import AlignEngine
     from pansvr_tpu_torch.ops.chain import chain_batch, chain_extract_batch
     from pansvr_tpu_torch.ops.collect import select_and_paths
@@ -167,7 +190,7 @@ def test_collect_card_matches_cpu(cuda_device, small_world, comp, budget):
 def test_stream_card_matches_cpu(cuda_device, small_world):
     """align_stream at depth 3 (device collect) on the card: the CPU
     engine's batches, in order, and the same adaptive state."""
-    from pansvr_tpu.align.host_align import OriResult
+    from pansvr_tpu_torch.align.host_align import OriResult
     from pansvr_tpu_torch.align.engine import AlignEngine
 
     idx, names, seqs = small_world
@@ -191,7 +214,7 @@ def test_engine_batch_makes_no_stream_sync(cuda_device, small_world, collect):
     """A whole batch (front, chain, collect, DP) with the sync debug mode
     set to raise: no pageable copy, .cpu(), .item() or data-dependent
     shape waits for the stream; only the engine's two event waits do."""
-    from pansvr_tpu.align.host_align import OriResult
+    from pansvr_tpu_torch.align.host_align import OriResult
     from pansvr_tpu_torch.align.engine import AlignEngine, EngineConfig
 
     idx, names, seqs = small_world

@@ -197,3 +197,34 @@ def test_plain_path_counts_no_launch():
     r = ec.extd2_fwd(q, ln, q, ln, ALN, W=64)
     assert (r.score == 40).all()
     assert ec.LAUNCHES == {"extd2_fwd": 0, "extd2_tb": 0}
+
+
+@pytest.mark.parametrize("params", [ALN, ALN._replace(zdrop=-1), SV],
+                         ids=["aln", "aln_no_zdrop", "sv"])
+def test_plain_cells_count_the_swept_band(params):
+    """extd2_fwd_plain_cells: the same result as extd2_fwd_plain, plus per
+    problem the 16-padded band cells of every diagonal its sweep reached
+    (the first band death, z-drop or its last diagonal ends it)."""
+    rng = np.random.default_rng(5)
+    pairs, (Q, T, W) = _mixed(rng)
+    qc, ql, tc, tl = (torch.from_numpy(a) for a in _pad(pairs, Q, T))
+    out, cells = ec.extd2_fwd_plain_cells(qc, ql, tc, tl, params, W)
+    ref = ec.extd2_fwd_plain(qc, ql, tc, tl, params, W)
+    for f in ref._fields:
+        assert torch.equal(getattr(out, f), getattr(ref, f)), f
+    for b in range(len(ql)):
+        qlen, tlen = int(ql[b]), int(tl[b])
+        want = 0
+        for r in range(qlen + tlen - 1):
+            st0 = max(0, r - qlen + 1, (r - params.w + 1) >> 1)
+            en0 = min(tlen - 1, r, (r + params.w) >> 1)
+            if st0 > en0:
+                break
+            st = st0 // 16 * 16
+            en = min((en0 + 16) // 16 * 16 - 1, (tlen + 15) // 16 * 16 - 1)
+            want += en - st + 1
+        # a z-drop may end the sweep before the band does
+        if bool(out.zdropped[b]):
+            assert 0 < int(cells[b]) <= want, b
+        else:
+            assert int(cells[b]) == want, b
