@@ -16,7 +16,12 @@ Phases, each timed; any failure raises (exit code != 0, no result line):
              cells, the kernel's bound (K1: OPS_PER_CELL ops per band cell,
              two cells per instruction in the packed 16-bit instance, at
              the SM's issue rate, or its bytes; K2: one 32-byte sector per
-             diagonal walked plus its ops row) and its share
+             diagonal walked plus its ops row) and its share, and K2's
+             longest walk (the most steps of one problem: its serial
+             floor). Then at the problem counts the engine launches for
+             the class (EngineConfig.dp_classes: full and residue chunks),
+             on the first problems of the set: K2 bit-exact vs plain, each
+             kernel alone, K2's walk and bound
   4 world    the fc_aln benchmark world (seed 123, 250k pairs, ~379k
              signal reads) in a temporary directory
   5 fc_aln   the port's CLI entry point on the whole world at -b 8192 in
@@ -48,7 +53,9 @@ Phases, each timed; any failure raises (exit code != 0, no result line):
              imported
 Prints a {"kernels": [...]} line (per kernel at the main shape: "ms" the
 wrapper's time, "kernel_ms" the raw launch's, "bound_ms" from this run's
-band cells), then the last line
+band cells, "per_pass_ms" the launches of a default fc_aln pass, each at
+its DP class and problem count, times the kernel alone there), then the
+last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
@@ -224,6 +231,18 @@ def max_abs_diff(x, y) -> int:
     return int((x.to(torch.int64) - y.to(torch.int64)).abs().max().item())
 
 
+def main_sizes(Q, T):
+    """Problem counts the engine launches for a (Q, T) DP class: the full
+    and the residue chunk of EngineConfig.dp_classes, for the read class
+    of the bench world (160) and the next one (256)."""
+    from pansvr_tpu_torch.align.engine import EngineConfig
+
+    cfg = EngineConfig()
+    return sorted({n for rc in (160, 256)
+                   for q, t, _, full, small in cfg.dp_classes(rc)
+                   if (q, t) == (Q, T) for n in (full, small)}, reverse=True)
+
+
 def kernel_parity(dev):
     """Phase 3. Returns per-set timing/err rows."""
     import numpy as np
@@ -316,11 +335,37 @@ def kernel_parity(dev):
         # per instruction when packed) and writes every direction byte; K2
         # reads one sector per diagonal it walks and writes its ops row
         n_cells = int(cells.sum().item())
-        steps = int((ops != 3).sum().item())
+        walks = (ops != 3).sum(1)
+        steps, longest = int(walks.sum().item()), int(walks.max().item())
         state16 = ec.packed_state(params, W)
         k1 = bound(OPS_PER_CELL * n_cells / (2 if state16 else 1) / int_rate,
                    B * (Q + T + 2 * 4 + 9 * 4) + B * n_diag_pad * W)
-        k2 = bound(0.0, SECTOR * steps + B * n_diag_pad + B * (4 * 4 + 2 * 4))
+
+        def k2_bound(n, n_steps):
+            return bound(0.0, SECTOR * n_steps + n * n_diag_pad
+                         + n * (4 * 4 + 2 * 4))
+
+        k2 = k2_bound(B, steps)
+        # the engine's chunk sizes of the class, on the first n problems
+        by_n = {}
+        for n in main_sizes(Q, T):
+            sl = slice(0, n)
+            tb_args = (got.dmat[sl], ql[sl], tl[sl], i0[sl], j0[sl], params,
+                       W, n_diag_pad, T)
+            got_n = ec.extd2_traceback(*tb_args)
+            want_n = ec.extd2_traceback_plain(*tb_args)
+            torch.cuda.synchronize()
+            if not all(torch.equal(a, b) for a, b in zip(got_n, want_n)):
+                raise AssertionError(f"extd2_tb {Q}x{T} at {n} problems "
+                                     "differs from the plain version")
+            w_n = (got_n[0] != 3).sum(1)
+            s_n = int(w_n.sum().item())
+            by_n[n] = dict(
+                fwd_kernel_ms=cuda_ms(ec.fwd_raw_launcher(
+                    qc[sl], ql[sl], tc[sl], tl[sl], params, W), 20),
+                tb_kernel_ms=cuda_ms(ec.tb_raw_launcher(*tb_args), 20),
+                tb_steps=s_n, tb_longest=int(w_n.max().item()),
+                tb_bound_ms=k2_bound(n, s_n)[0])
         dead = torch.tensor([band_dies(len(q), len(t), params.w)
                              for q, t in pairs], device=dev)
         n_dead = int(dead.sum().item())
@@ -332,7 +377,7 @@ def kernel_parity(dev):
                    fwd_plain_ms=fwd_plain_ms, fwd_bound_ms=k1[0],
                    fwd_bound_by=k1[1], tb_ms=tb_ms, tb_kernel_ms=tb_k_ms,
                    tb_plain_ms=tb_plain_ms, tb_bound_ms=k2[0],
-                   tb_bound_by=k2[1])
+                   tb_bound_by=k2[1], tb_longest=longest, by_n=by_n)
         log(f"kernels {Q}x{T} W={W} w={params.w} B={B}: bit-exact vs plain "
             f"(fwd, tb), {n_oracle} vs NumPy oracle OK; score z-drops "
             f"{row['zdropped']}, band-dead {n_dead}")
@@ -340,14 +385,47 @@ def kernel_parity(dev):
             f"{n_cells} band cells, bound {k1[0]:.4g} ms ({k1[1]}); kernel "
             f"{fwd_k_ms:.4f} ms = {k1[0] / fwd_k_ms:.1%} of bound; wrapper "
             f"{fwd_ms:.4f} ms; plain {fwd_plain_ms:.1f} ms")
-        log(f"  K2: {steps} diagonals walked, bound {k2[0]:.4g} ms ({k2[1]}); "
-            f"kernel {tb_k_ms:.4f} ms = {k2[0] / tb_k_ms:.1%} of bound; "
-            f"wrapper {tb_ms:.4f} ms; plain {tb_plain_ms:.1f} ms")
+        log(f"  K2: {steps} diagonals walked, longest walk {longest} "
+            f"steps, bound {k2[0]:.4g} ms ({k2[1]}); kernel {tb_k_ms:.4f} "
+            f"ms = {k2[0] / tb_k_ms:.1%} of bound; wrapper {tb_ms:.4f} ms; "
+            f"plain {tb_plain_ms:.1f} ms")
+        for n, v in by_n.items():
+            log(f"  at {n} problems (an engine chunk): K1 alone "
+                f"{v['fwd_kernel_ms']:.4f} ms; K2 bit-exact vs plain, alone "
+                f"{v['tb_kernel_ms']:.4f} ms, {v['tb_steps']} diagonals "
+                f"walked, longest walk {v['tb_longest']}, bound "
+                f"{v['tb_bound_ms']:.4g} ms = "
+                f"{v['tb_bound_ms'] / v['tb_kernel_ms']:.1%}")
         rows.append(row)
     if not any(r["zdropped"] for r in rows) or \
             not any(r["band_dead"] for r in rows):
         raise AssertionError("parity problems hit no z-drop or no dead band")
     return rows
+
+
+def per_pass_ms(rows, shapes):
+    """{kernel: ms} of one timed pass: its launches by (Tmax, W, problems)
+    over the passes, each times the kernel alone at that class and count
+    (phase 3); a size phase 3 did not time is logged and left out."""
+    alone = {(r["shape"][1], r["shape"][2], n): v
+             for r in rows for n, v in r["by_n"].items()}
+    out = {}
+    for kernel, field in (("extd2_fwd", "fwd_kernel_ms"),
+                          ("extd2_tb", "tb_kernel_ms")):
+        ms = 0.0
+        for (k, t, W, n), count in shapes.items():
+            if k != kernel:
+                continue
+            if (t, W, n) not in alone:
+                log(f"{k}: {count} launches at Tmax={t} W={W} with {n} "
+                    "problems, a size phase 3 did not time: left out of "
+                    "per-pass ms")
+                continue
+            ms += count / N_TIMED * alone[(t, W, n)][field]
+        out[kernel] = ms
+    log("per-pass kernel ms (launches x time alone at the launched size, "
+        f"{CONFIGS[0][0]}): " + ", ".join(f"{k} {v:.3f}" for k, v in out.items()))
+    return out
 
 
 def host_parity(eng, seqs, oris):
@@ -455,11 +533,12 @@ def bench_passes(w, tmp, dev, launches, n_reads, n_timed=N_TIMED):
             f"{r['peak_mib']:.1f} MiB")
         log(f"engine phases of the last {name} pass (s) and counts: "
             f"{r['prof']}")
-        per_pass = {f"{k} Tmax={t} W={W}": n / n_timed for (k, t, W), n
+        per_pass = {f"{k} Tmax={t} W={W} B={b}": n / n_timed
+                    for (k, t, W, b), n
                     in sorted(LAUNCH_SHAPES.get(f"bench_{name}", {}).items())}
-        log(f"kernel launches per {name} pass by DP class (target width "
-            f"Tmax: 64 = 48x64, 128 = 96x128, 256/352 = the read class's "
-            f"176x256 / 272x352): {per_pass}")
+        log(f"kernel launches per {name} pass by DP class and problem "
+            f"count (target width Tmax: 64 = 48x64, 128 = 96x128, 256/352 = "
+            f"the read class's 176x256 / 272x352): {per_pass}")
     (a, ra), (b, rb) = res.items()
     n = same_bam(ra["bam"], rb["bam"], f"fc_aln {a} vs {b}")
     log(f"{a} and {b}: {n} BAM records identical")
@@ -684,6 +763,7 @@ def main():
 
     main_row = next(r for r in rows if r["shape"] == MAIN_SHAPE)
     main_launches = launches[f"bench_{CONFIGS[0][0]}"]
+    per_pass = per_pass_ms(rows, LAUNCH_SHAPES[f"bench_{CONFIGS[0][0]}"])
     print(json.dumps({"kernels": [
         {"name": "extd2_fwd", "route": "cuda",
          "source": "pansvr_tpu_torch/csrc/extd2_fwd.cu",
@@ -693,7 +773,8 @@ def main():
          "ms": main_row["fwd_ms"], "kernel_ms": main_row["fwd_kernel_ms"],
          "plain_ms": main_row["fwd_plain_ms"],
          "bound_ms": main_row["fwd_bound_ms"],
-         "bound_by": main_row["fwd_bound_by"], "library_ms": None},
+         "bound_by": main_row["fwd_bound_by"], "library_ms": None,
+         "per_pass_ms": per_pass["extd2_fwd"]},
         {"name": "extd2_tb", "route": "cuda",
          "source": "pansvr_tpu_torch/csrc/extd2_tb.cu",
          "replaces": "pansvr_tpu/ops/extd2_pallas.py:484",
@@ -702,7 +783,8 @@ def main():
          "ms": main_row["tb_ms"], "kernel_ms": main_row["tb_kernel_ms"],
          "plain_ms": main_row["tb_plain_ms"],
          "bound_ms": main_row["tb_bound_ms"],
-         "bound_by": main_row["tb_bound_by"], "library_ms": None},
+         "bound_by": main_row["tb_bound_by"], "library_ms": None,
+         "per_pass_ms": per_pass["extd2_tb"]},
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

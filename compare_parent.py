@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """This tree against another checkout of the repo (an earlier commit) on
-the card: the forward kernel (K1) alone, and the fc_aln entry point.
+the card: the forward kernel (K1) alone, the traceback kernel (K2) alone,
+and the fc_aln entry point.
 
     git archive <commit> | tar -x -C smoke_src/parent   # a gitignored dir
     python3 compare_parent.py smoke_src/parent [--other-abi 16|17]
@@ -17,6 +18,15 @@ instance is timed only where the class takes the packed 16-bit state, to
 show what that state buys. --other-abi is the number of int arguments of
 the other library's pansvr_extd2_fwd: 16 for the int32-state kernel before
 the state16 flag, 17 for the kernel with it.
+
+K2, in this process: the other library's pansvr_extd2_tb (the same ABI
+since the port began: 7 pointers, 5 ints, the stream).
+Per class, on this tree's K1 direction bytes and chip_smoke's traceback
+starts, at the set's size and at each problem count the engine launches
+for the class (chip_smoke.main_sizes): ops and final (i, j) of the other
+kernel and this one byte-identical, then each timed alone in the order
+other, this, this, other (--reps raw launches each); a kernel's time is
+the mean of its two.
 
 fc_aln: builds chip_smoke.py's bench world once and starts one process
 per tree that runs the tree's fc_aln CLI entry point (default engine
@@ -85,34 +95,28 @@ def fwd_launcher(lib, n_int, qc, ql, tc, tl, out, dmat, params, W, state16):
 
 
 def bind(path, n_int):
+    """A kernel library with pansvr_extd2_fwd taking n_int ints (and
+    pansvr_extd2_tb: 7 pointers, 5 ints, the stream)."""
     lib = ctypes.CDLL(path)
     P, I = ctypes.c_void_p, ctypes.c_int
     lib.pansvr_extd2_fwd.restype = I
     lib.pansvr_extd2_fwd.argtypes = [P] * 6 + [I] * n_int + [P]
+    lib.pansvr_extd2_tb.restype = I
+    lib.pansvr_extd2_tb.argtypes = [P] * 7 + [I] * 5 + [P]
     return lib
 
 
-def k1_rows(other_root, other_abi, reps):
+def dp_sets(dev):
+    """chip_smoke's seeded problems of every DP class, in its order:
+    (Q, T, W, params, n_diag_pad, qc, ql, tc, tl) on the card."""
     import numpy as np
     import torch
 
     import chip_smoke as cs
-    from pansvr_tpu_torch import _build
-    from pansvr_tpu_torch.ops import extd2_cuda as ec
     from pansvr_tpu_torch.ops.extd2 import Extd2Params, plan
 
-    _build.load_kernels()
-    this = bind(_build.library_path(), 17)
-    other_so = os.path.join(REPO, "build", "kernels", "libother_kernels.so")
-    _build.compile_library(
-        os.path.join(other_root, "pansvr_tpu_torch", "csrc"), other_so)
-    other = bind(other_so, other_abi)
-
-    dev = torch.device("cuda")
     rng = np.random.default_rng(2024)
-    rows = []
     for Q, T, W, prof, n_prob, _ in cs.DP_SETS:
-        params = Extd2Params(**prof)
         pairs = cs.make_problems(rng, Q, T, n_prob)
         B = len(pairs)
         qc = np.zeros((B, Q), np.uint8)
@@ -123,7 +127,34 @@ def k1_rows(other_root, other_abi, reps):
             qc[i, : len(q)], tc[i, : len(t)] = q, t
             ql[i], tl[i] = len(q), len(t)
         qc, ql, tc, tl = (torch.from_numpy(a).to(dev) for a in (qc, ql, tc, tl))
-        _, n_diag_pad, _, _ = plan(Q, T, W)
+        yield Q, T, W, Extd2Params(**prof), plan(Q, T, W)[1], qc, ql, tc, tl
+
+
+def other_library(other_root):
+    """The other tree's kernels, built from its csrc/ beside this tree's."""
+    from pansvr_tpu_torch import _build
+
+    other_so = os.path.join(REPO, "build", "kernels", "libother_kernels.so")
+    _build.compile_library(
+        os.path.join(other_root, "pansvr_tpu_torch", "csrc"), other_so)
+    return other_so
+
+
+def k1_rows(other_so, other_abi, reps):
+    import torch
+
+    import chip_smoke as cs
+    from pansvr_tpu_torch import _build
+    from pansvr_tpu_torch.ops import extd2_cuda as ec
+
+    _build.load_kernels()
+    this = bind(_build.library_path(), 17)
+    other = bind(other_so, other_abi)
+
+    dev = torch.device("cuda")
+    rows = []
+    for Q, T, W, params, n_diag_pad, qc, ql, tc, tl in dp_sets(dev):
+        B = qc.shape[0]
         state16 = ec.packed_state(params, W)
         variants = [("other", other, other_abi, state16),
                     ("this", this, 17, state16)]
@@ -158,6 +189,63 @@ def k1_rows(other_root, other_abi, reps):
                    speedup=ms["other"] / ms["this"])
         print(json.dumps(row), flush=True)
         rows.append(row)
+    return rows
+
+
+def k2_rows(other_so, reps):
+    """K2 of the other tree against this tree's, per class and size."""
+    import torch
+
+    import chip_smoke as cs
+    from pansvr_tpu_torch.ops import extd2_cuda as ec
+
+    other = bind(other_so, 17)
+    dev = torch.device("cuda")
+    rows = []
+    for Q, T, W, params, n_diag_pad, qc, ql, tc, tl in dp_sets(dev):
+        got = ec.extd2_fwd(qc, ql, tc, tl, params, W)
+        zd = got.zdropped
+        i0 = torch.where(~zd, tl - 1, torch.where(got.max_t >= 0, got.max_t,
+                                                  -1)).to(torch.int32)
+        j0 = torch.where(~zd, ql - 1, torch.where(got.max_q >= 0, got.max_q,
+                                                  -1)).to(torch.int32)
+        t_pad = max((T + 15) // 16 * 16, W)
+        B = qc.shape[0]
+        for n in sorted({B, *cs.main_sizes(Q, T)}, reverse=True):
+            sl = slice(0, n)
+            args = (got.dmat[sl], ql[sl], tl[sl], i0[sl], j0[sl], params, W,
+                    n_diag_pad, T)
+            ops_o = torch.empty((n, n_diag_pad), dtype=torch.int8, device=dev)
+            fin_o = torch.empty((2, n), dtype=torch.int32, device=dev)
+            o_args = (*(a.contiguous().data_ptr() for a in args[:5]),
+                      ops_o.data_ptr(), fin_o.data_ptr(), n, W, n_diag_pad,
+                      t_pad, params.w, torch.cuda.current_stream().cuda_stream)
+
+            def run_other():
+                err = other.pansvr_extd2_tb(*o_args)
+                if err:
+                    raise RuntimeError(f"other extd2_tb launch: CUDA error {err}")
+
+            run_other()
+            ops, i_f, j_f = ec.extd2_traceback(*args)
+            torch.cuda.synchronize()
+            if not (torch.equal(ops, ops_o) and torch.equal(i_f, fin_o[0])
+                    and torch.equal(j_f, fin_o[1])):
+                bad = ((ops != ops_o).any(1) | (i_f != fin_o[0])
+                       | (j_f != fin_o[1])).nonzero().flatten()
+                raise AssertionError(
+                    f"K2 {Q}x{T}/W{W} at {n}: this kernel differs from the "
+                    f"other tree's in {bad.numel()} problems (first "
+                    f"{bad[:5].tolist()})")
+            this = ec.tb_raw_launcher(*args)
+            t = [cs.cuda_ms(f, reps) for f in (run_other, this, this, run_other)]
+            walks = (ops != 3).sum(1)
+            row = dict(shape=[Q, T, W], n=n, steps=int(walks.sum().item()),
+                       longest=int(walks.max().item()), times_ms=t,
+                       other_ms=(t[0] + t[3]) / 2, this_ms=(t[1] + t[2]) / 2)
+            row["speedup"] = row["other_ms"] / row["this_ms"]
+            print(json.dumps(row), flush=True)
+            rows.append(row)
     return rows
 
 
@@ -257,9 +345,11 @@ def main(argv=None):
     other_root = os.path.abspath(args.other)
     card = cs.card_line()
     print(card, flush=True)
+    other_so = other_library(other_root)
     result = dict(card=card, other=args.other, other_abi=args.other_abi,
-                  reps=args.reps, k1=k1_rows(other_root, args.other_abi,
-                                             args.reps))
+                  reps=args.reps,
+                  k1=k1_rows(other_so, args.other_abi, args.reps),
+                  k2=k2_rows(other_so, args.reps))
     if not args.no_fc_aln:
         result["fc_aln"] = fc_aln_rows(other_root, args.passes)
     if args.json:

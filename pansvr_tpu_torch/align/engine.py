@@ -59,7 +59,7 @@ import numpy as np
 import torch
 
 from ..index.builder import RdBGIndex
-from ..index.device import to_device
+from ..index.device import resolve_device, to_device
 from ..ops import extd2_cuda
 from ..ops.chain import chain_batch, chain_extract_batch
 from ..ops.collect import select_and_paths
@@ -145,18 +145,18 @@ class EngineConfig:
         q = read_class + 16
         return q, q + 80
 
-
-def resolve_device(device) -> torch.device:
-    """torch.device for `device`; a CUDA device that is not there raises
-    (the engine never moves to the CPU on its own)."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            f"device {device!r} requested but torch.cuda.is_available() is "
-            "false; pass device='cpu' to run the plain PyTorch path")
-    if dev.type not in ("cuda", "cpu"):
-        raise ValueError(f"unsupported device {device!r}")
-    return dev
+    def dp_classes(self, read_class: int):
+        """[(Qmax, Tmax, W, full chunk, residue chunk)] of the DP classes a
+        batch of `read_class` launches, (48, 64) first: most DP segments
+        are small chain-gap repairs. A class is cut into full chunks,
+        then residue chunks of a quarter (at least 128 problems)."""
+        dp_q, dp_t = self.dp_class(read_class)
+        classes = [(48, 64, 64, self.dp_chunk),
+                   (96, 128, 128, max(self.dp_chunk // 4, 128)),
+                   (dp_q, dp_t, 256, max(self.dp_chunk // 16, 128))]
+        classes = [c for c in classes[:-1]
+                   if c[0] < dp_q and c[1] < dp_t] + [classes[-1]]
+        return [(q, t, W, n, max(n // 4, 128)) for q, t, W, n in classes]
 
 
 def unpack_codes(words: torch.Tensor, L: int) -> torch.Tensor:
@@ -1002,16 +1002,10 @@ class AlignEngine:
         behind one event."""
         cfg = self.cfg
         t = time.perf_counter()
-        dp_q, dp_t = cfg.dp_class(pend["read_class"])
-        # (48, 64) first: most DP segments are small chain-gap repairs
-        classes = [(48, 64, 64, cfg.dp_chunk),
-                   (96, 128, 128, max(cfg.dp_chunk // 4, 128)),
-                   (dp_q, dp_t, 256, max(cfg.dp_chunk // 16, 128))]
-        classes = [c for c in classes[:-1]
-                   if c[0] < dp_q and c[1] < dp_t] + [classes[-1]]
+        classes = cfg.dp_classes(pend["read_class"])
         ql_all, tl_all = gb.req_sizes()
         assigned = np.full(gb.n_req, -1, np.int32)
-        for ci, (cq, ct, _, _) in enumerate(classes):
+        for ci, (cq, ct, _, _, _) in enumerate(classes):
             m = (assigned < 0) & (ql_all <= cq) & (tl_all <= ct)
             assigned[m] = ci
         meta5 = gb.req_meta()
@@ -1019,12 +1013,11 @@ class AlignEngine:
             raise RuntimeError("native glue returned no DP request metadata")
         layout = []   # (cq, ct, W, members, chunk size, column offset)
         off = 0
-        for ci, (cq, ct, W, CHUNK) in enumerate(classes):
+        for ci, (cq, ct, W, CHUNK, small) in enumerate(classes):
             members = np.nonzero(assigned == ci)[0].astype(np.int32)
             # size-sort: neighbouring problems have similar sweep lengths
             members = members[np.argsort(
                 ql_all[members] + tl_all[members], kind="stable")]
-            small = max(CHUNK // 4, 128)
             c0 = 0
             while c0 < len(members):
                 size = CHUNK if len(members) - c0 >= CHUNK else small

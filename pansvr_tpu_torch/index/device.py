@@ -64,7 +64,23 @@ class DeviceIndex:
     uni_words_pad: torch.Tensor  # unitig words, PAD_WORDS zeros both ends
 
 
-def to_device(idx: RdBGIndex, device="cpu") -> DeviceIndex:
+def resolve_device(device) -> torch.device:
+    """torch.device for `device`; a CUDA device that is not there raises
+    (the port never moves to the CPU on its own)."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {device!r} requested but torch.cuda.is_available() is "
+            "false; pass device='cpu' to run the plain PyTorch path")
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {device!r}")
+    return dev
+
+
+def to_device(idx: RdBGIndex, device="cuda") -> DeviceIndex:
+    """The index tensors on `device` (default the card; a missing card
+    raises, as the engine's device does; pass "cpu" for the plain path)."""
+    device = resolve_device(device)
     ent_uid = np.searchsorted(idx.uni_seqf, idx.off_g, side="right") - 1
     ent_uid = np.clip(ent_uid, 0, max(idx.n_unitigs - 1, 0))
     ent_off_l = idx.off_g - idx.uni_seqf[ent_uid]

@@ -1,9 +1,9 @@
 """BGZF (blocked gzip) reader/writer.
 
-Replaces htslib's bgzf layer for BAM files. Pure Python over zlib;
-block-level parallel compression is handled by the native C++ codec in
-native/ when built (see io/bam.py), this module is the portable
-fallback and the format reference.
+Replaces htslib's bgzf layer for BAM files. Compression and many-block
+decompression go through the native C++ codec in native/ (required: a
+missing library or a codec error raises, there is no zlib fallback);
+read() and read_all() decode block by block with zlib.
 """
 
 from __future__ import annotations
@@ -17,32 +17,10 @@ BGZF_EOF = bytes.fromhex(
 MAX_BLOCK = 65536
 
 
-def compress_block(data: bytes, level: int = 6) -> bytes:
-    """One BGZF block (data must be < 64 KiB)."""
-    co = zlib.compressobj(level, zlib.DEFLATED, -15)
-    cdata = co.compress(data) + co.flush()
-    bsize = len(cdata) + 25 + 1  # header(18) + footer(8) minus... computed:
-    # header 12 + XLEN 6 = 18; footer 8; total = 18 + len(cdata) + 8
-    bsize = 18 + len(cdata) + 8
-    header = struct.pack(
-        "<4BI2BH2B2H",
-        0x1F, 0x8B, 0x08, 0x04,   # magic, deflate, FEXTRA
-        0,                         # mtime
-        0, 0xFF,                   # XFL, OS
-        6,                         # XLEN
-        66, 67,                    # 'B', 'C'
-        2,                         # subfield length
-        bsize - 1,                 # BSIZE - 1
-    )
-    footer = struct.pack("<II", zlib.crc32(data) & 0xFFFFFFFF, len(data))
-    return header + cdata + footer
-
-
 class BGZFWriter:
     """Buffers whole batches and compresses them with the native
     multithreaded codec (native/bgzf_codec.cpp; required: a missing
-    library raises), single-threaded zlib only for a buffer the codec
-    refuses."""
+    library or a codec error raises)."""
 
     def __init__(self, path_or_fh, level: int = 6, batch_bytes: int = 8 << 20):
         self._own = isinstance(path_or_fh, str)
@@ -61,12 +39,7 @@ class BGZFWriter:
         del self._buf[:n]
         from . import native_bgzf
 
-        out = native_bgzf.compress(chunk, self.level)
-        if out is not None:
-            self._fh.write(out)
-            return
-        for i in range(0, len(chunk), 65000):
-            self._fh.write(compress_block(chunk[i : i + 65000], self.level))
+        self._fh.write(native_bgzf.compress(chunk, self.level))
 
     def close(self) -> None:
         if self._buf:
@@ -127,27 +100,17 @@ class BGZFReader:
     def next_chunk(self) -> bytes | None:
         """Drain the buffered decompressed bytes (or the next block(s))
         as one chunk — the zero-compaction path for record streaming
-        (read() pays an O(buffer) bytearray delete per call). With the
-        native codec built, many blocks decompress per call on a thread
-        pool."""
+        (read() pays an O(buffer) bytearray delete per call). Many blocks
+        decompress per call on the native codec's thread pool."""
         if self._buf:
             out = bytes(self._buf)
             self._buf.clear()
             self.uoffset += len(out)
             return out
-        from . import native_bgzf
-
-        if native_bgzf.available():
-            while True:
-                out = self._next_chunk_native()
-                if out is None or out:
-                    return out  # EOF or real payload (skip empty blocks)
-        if not self._read_block():
-            return None
-        out = bytes(self._buf)
-        self._buf.clear()
-        self.uoffset += len(out)
-        return out
+        while True:
+            out = self._next_chunk_native()
+            if out is None or out:
+                return out  # EOF or real payload (skip empty blocks)
 
     def _next_chunk_native(self, target: int = 4 << 20) -> bytes | None:
         """Read up to ~target compressed bytes of whole blocks and
@@ -179,13 +142,6 @@ class BGZFReader:
                 return None
             raise ValueError("oversized/truncated BGZF block")
         out = native_bgzf.decompress_blocks(data, offs, lens)
-        if out is None:  # codec refused: fall back to the zlib path
-            self._buf += b"".join(
-                zlib.decompress(
-                    data[o + 18 : o + l - 8], -15) for o, l in zip(offs, lens)
-            )
-            out = bytes(self._buf)
-            self._buf.clear()
         self.uoffset += len(out)
         return out
 

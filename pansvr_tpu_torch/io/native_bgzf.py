@@ -32,10 +32,6 @@ def load_required(path: str, what: str):
                            f"load: {e}") from e
 
 
-def available() -> bool:
-    return get_lib() is not None
-
-
 def get_lib():
     global _lib
     if _lib is None:
@@ -48,12 +44,17 @@ def get_lib():
     return _lib
 
 
-def decompress_blocks(data, offs, lens, n_threads: int = 8) -> bytes | None:
+def _check(rc: int, what: str) -> None:
+    """Raise when the codec returned an error code (no zlib fallback)."""
+    if rc < 0:
+        raise RuntimeError(f"the native BGZF codec failed to {what} "
+                           f"(error code {rc})")
+
+
+def decompress_blocks(data, offs, lens, n_threads: int = 8) -> bytes:
     """Decompress many BGZF blocks (extents into `data`) in parallel;
-    returns the concatenated payload, or None when unavailable."""
+    returns the concatenated payload. Raises on a codec error."""
     lib = get_lib()
-    if lib is None:
-        return None
     n = len(offs)
     if n == 0:
         return b""
@@ -83,8 +84,7 @@ def decompress_blocks(data, offs, lens, n_threads: int = 8) -> bytes | None:
             dst.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
             dst_offs.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
         )
-        if rc < 0:
-            return None
+        _check(rc, "decompress")
         return dst.tobytes()
     dst = np.empty(n * 65536, dtype=np.uint8)
     dst_lens = np.empty(n, dtype=np.int32)
@@ -96,20 +96,17 @@ def decompress_blocks(data, offs, lens, n_threads: int = 8) -> bytes | None:
         dst.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
         dst_lens.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
     )
-    if rc < 0:
-        return None
+    _check(rc, "decompress")
     out = np.concatenate(
         [dst[i * 65536 : i * 65536 + dst_lens[i]] for i in range(n)])
     return out.tobytes()
 
 
 def compress(data: bytes, level: int = 6, n_threads: int = 8,
-             block_size: int = 65000) -> bytes | None:
+             block_size: int = 65000) -> bytes:
     """Compress a byte buffer into concatenated BGZF blocks in parallel.
-    Returns None when the native library is unavailable."""
+    Raises on a codec error."""
     lib = get_lib()
-    if lib is None:
-        return None
     n = len(data)
     if n == 0:
         return b""
@@ -128,8 +125,7 @@ def compress(data: bytes, level: int = 6, n_threads: int = 8,
         dst.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
         dst_lens.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
     )
-    if rc < 0:
-        return None
+    _check(rc, "compress")
     parts = [
         dst[i * 65536 : i * 65536 + dst_lens[i]].tobytes()
         for i in range(n_blocks)

@@ -36,13 +36,19 @@ from .extd2 import (
 )
 
 # kernel launches since the last reset (a wrapper counts where it launches),
-# in all and by DP shape: {(kernel, Tmax, W): n}
+# in all and by DP shape and problem count: {(kernel, Tmax, W, B): n}
 LAUNCHES = {"extd2_fwd": 0, "extd2_tb": 0}
 LAUNCHES_BY_SHAPE: dict = {}
 
 _I32 = torch.int32
 _I32MAX = 0x7FFFFFFF
 MAX_W = 256     # widest window the forward kernel takes (8 row slots a lane)
+# traceback kernel constants (csrc/extd2_tb.cu): diagonals per staged
+# chunk (one per lane of the problem's warp), problems (warps) per block,
+# and the shared memory a block may use on the H100
+TB_D = 32
+TB_WARPS = 4
+MAX_SMEM_BLOCK = 232448
 
 
 def reset_launches() -> None:
@@ -51,9 +57,9 @@ def reset_launches() -> None:
     LAUNCHES_BY_SHAPE.clear()
 
 
-def _count(kernel: str, Tmax: int, W: int) -> None:
+def _count(kernel: str, Tmax: int, W: int, B: int) -> None:
     LAUNCHES[kernel] += 1
-    key = (kernel, Tmax, W)
+    key = (kernel, Tmax, W, B)
     LAUNCHES_BY_SHAPE[key] = LAUNCHES_BY_SHAPE.get(key, 0) + 1
 
 
@@ -395,7 +401,7 @@ def extd2_fwd(q, ql, t, tl, params: Extd2Params = Extd2Params(),
 
     lib, args, out, dmat, _ = _fwd_args(q, ql, t, tl, params, W)
     check(lib, lib.pansvr_extd2_fwd(*args), "extd2_fwd launch")
-    _count("extd2_fwd", t.shape[1], W)
+    _count("extd2_fwd", t.shape[1], W, q.shape[0])
     return Extd2Out(out[0], out[1], out[2], out[3], out[4], out[5], out[6],
                     out[7], out[8] > 0, dmat)
 
@@ -414,6 +420,20 @@ def fwd_raw_launcher(q, ql, t, tl, params: Extd2Params, W: int):
     return launch
 
 
+def tb_plan(W: int) -> tuple[int, int, int]:
+    """(TB_D, warps per block, dynamic shared-memory bytes a block) of a
+    traceback launch at window W, as pansvr_extd2_tb computes them: two
+    buffers per warp of TB_D + 2 rows (a step reads two rows ahead) of
+    W + 48 bytes (the window, its slide by 16 and the forced cells around
+    it). Each row of a chunk's TB_D x W bytes of dmat arrives in 16-byte
+    cp.async pieces, so W (and TB_D * W) must be a multiple of 16."""
+    smem = TB_WARPS * 2 * (TB_D + 2) * (W + 48)
+    if W % 16 or smem > MAX_SMEM_BLOCK:
+        raise ValueError(f"traceback plan W={W}: {smem} bytes of shared "
+                         "memory a block")
+    return TB_D, TB_WARPS, smem
+
+
 def _tb_args(dmat, ql, tl, i0, j0, params: Extd2Params, W: int,
              n_diag_pad: int, Tmax: int):
     """Checks, output allocation and the C argument list of one traceback
@@ -426,11 +446,15 @@ def _tb_args(dmat, ql, tl, i0, j0, params: Extd2Params, W: int,
     B = dmat.shape[0]
     if any(a.shape != (B,) for a in (ql, tl, i0, j0)):
         raise ValueError("ql, tl, i0, j0 must be (B,) for dmat of B problems")
+    tb_plan(W)
     lib = load_kernels()
     dev = dmat.device
     t_pad = max(_ceil16(Tmax), W)
     keep = [dmat.contiguous()] + [a.to(_I32).contiguous()
                                   for a in (ql, tl, i0, j0)]
+    if keep[0].data_ptr() % 16:
+        raise ValueError("dmat must start 16-byte aligned (the kernel "
+                         "stages it with 16-byte cp.async)")
     ops = torch.empty((B, n_diag_pad), dtype=torch.int8, device=dev)
     fin = torch.empty((2, B), dtype=_I32, device=dev)
     args = (*(a.data_ptr() for a in keep), ops.data_ptr(), fin.data_ptr(),
@@ -442,7 +466,8 @@ def extd2_traceback(dmat, ql, tl, i0, j0, params: Extd2Params, W: int,
                     n_diag_pad: int, Tmax: int):
     """Walk the direction bytes back from (i0, j0) (target, query; -1 =
     no walk). Returns ops (B, n_diag_pad) int8 in walk order and the
-    final (i, j)."""
+    final (i, j). As for extd2_fwd, W covers the band and tl <= Tmax."""
+    check_window(params, Tmax, W)
     if dmat.shape[1:] != (n_diag_pad, W):
         raise ValueError(f"dmat shape {tuple(dmat.shape)} != (B, {n_diag_pad}, {W})")
     if not _on_cuda(dmat, ql, tl, i0, j0):
@@ -453,7 +478,7 @@ def extd2_traceback(dmat, ql, tl, i0, j0, params: Extd2Params, W: int,
     lib, args, ops, fin, _ = _tb_args(dmat, ql, tl, i0, j0, params, W,
                                       n_diag_pad, Tmax)
     check(lib, lib.pansvr_extd2_tb(*args), "extd2_traceback launch")
-    _count("extd2_tb", Tmax, W)
+    _count("extd2_tb", Tmax, W, dmat.shape[0])
     return ops, fin[0], fin[1]
 
 

@@ -82,8 +82,48 @@ def test_kernels_match_plain(cuda_device, Q, T, W, params):
     for a, b in zip(want, got):
         assert torch.equal(a, b.cpu())
     assert ec.LAUNCHES == {"extd2_fwd": 1, "extd2_tb": 1}
-    assert ec.LAUNCHES_BY_SHAPE == {("extd2_fwd", T, W): 1,
-                                    ("extd2_tb", T, W): 1}
+    assert ec.LAUNCHES_BY_SHAPE == {("extd2_fwd", T, W, 512): 1,
+                                    ("extd2_tb", T, W, 512): 1}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Q,T,W,params,B", [
+    (48, 64, 64, ALN, 2048), (96, 128, 128, ALN, 512),
+    (576, 704, 192, SV, 1001), (176, 256, 256, ALN, 128)],
+    ids=["W64_B2048", "W128_B512", "W192_B1001", "W256_B128"])
+def test_traceback_kernel_matches_plain(cuda_device, Q, T, W, params, B):
+    """K2 against extd2_traceback_plain on random direction bytes (every
+    state code and continuation bit) from five kinds of start: dead
+    (-1, -1), half dead (-1, j), the problem's end, the class's last
+    diagonal (the top chunk) and anywhere in the problem, whose walks
+    leave the band (forced D/I) and, where the window slides (W = 192),
+    start or run outside the window. B = 1001 is not a multiple of the
+    warps per block."""
+    rng = np.random.default_rng(W + B)
+    _, n_diag_pad, _, _ = plan(Q, T, W)
+    dmat = torch.from_numpy(rng.integers(0, 256, (B, n_diag_pad, W),
+                                         dtype=np.uint8))
+    kind = np.arange(B) % 5
+    ql = np.where(kind == 3, Q, rng.integers(1, Q + 1, B)).astype(np.int32)
+    tl = np.where(kind == 3, T, rng.integers(1, T + 1, B)).astype(np.int32)
+    i0 = np.where((kind == 2) | (kind == 3), tl - 1,
+                  (rng.random(B) * tl).astype(np.int32)).astype(np.int32)
+    j0 = np.where((kind == 2) | (kind == 3), ql - 1,
+                  (rng.random(B) * ql).astype(np.int32)).astype(np.int32)
+    i0[kind <= 1] = -1
+    j0[kind == 0] = -1
+    ql, tl, i0, j0 = (torch.from_numpy(a) for a in (ql, tl, i0, j0))
+    want = ec.extd2_traceback_plain(dmat, ql, tl, i0, j0, params, W,
+                                    n_diag_pad, T)
+    # the ops memory comes uninitialised: poison the allocator's blocks
+    torch.full((1 << 26,), 0xA5, dtype=torch.uint8, device=cuda_device)
+    got = ec.extd2_traceback(*(a.to(cuda_device) for a in
+                               (dmat, ql, tl, i0, j0)),
+                             params, W, n_diag_pad, T)
+    for a, b in zip(want, got):
+        assert torch.equal(a, b.cpu())
+    steps = (want[0] != 3).sum(1)
+    assert (steps[kind <= 1] == 0).all() and (steps[kind >= 2] > 0).all()
 
 
 @pytest.mark.cuda

@@ -189,6 +189,28 @@ def test_wrapper_refuses_bad_window():
         ec.extd2_fwd(q, one, q, one, ALN, W=40)
 
 
+@pytest.mark.parametrize("W", range(32, ec.MAX_W + 1, 32))
+def test_traceback_plan_fits_every_forward_window(W):
+    """The traceback kernel's launch plan at every window the forward
+    kernel takes: whole 16-byte cp.async pieces, and two chunk buffers a
+    warp within a block's 227 KB of shared memory."""
+    D, warps, smem = ec.tb_plan(W)
+    assert (D * W) % 16 == 0
+    assert smem == warps * 2 * (D + 2) * (W + 48) <= 227 * 1024
+    with pytest.raises(ValueError):
+        ec.tb_plan(W + 8)   # not whole 16-byte pieces
+
+
+def test_traceback_refuses_bad_window():
+    """As the forward wrapper: a window that does not cover the band is
+    refused (the kernel folds the band into the window's bytes)."""
+    one = torch.ones(1, dtype=torch.int32)
+    _, n_diag_pad, _, _ = plan(8, 400, 64)
+    dmat = torch.zeros((1, n_diag_pad, 64), dtype=torch.uint8)
+    with pytest.raises(ValueError, match="does not cover"):
+        ec.extd2_traceback(dmat, one, one, one, one, ALN, 64, n_diag_pad, 400)
+
+
 def test_plain_path_counts_no_launch():
     ec.reset_launches()
     q = torch.randint(0, 4, (4, 20), dtype=torch.int32,

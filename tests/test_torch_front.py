@@ -28,7 +28,19 @@ def world():
     c1 = contigs[1][1]
     contigs[1] = (contigs[1][0], c1[:1000] + rep + c1[1400:])
     idx = build_index(contigs, first_level_bases=10)
-    return idx, jax_to_device(idx), to_device(idx), contigs
+    return idx, jax_to_device(idx), to_device(idx, device="cpu"), contigs
+
+
+def test_to_device_takes_the_card_unless_asked(world, monkeypatch):
+    """to_device defaults to the card and raises without one; the CPU is
+    taken only when asked for."""
+    idx, _, cpu, _ = world
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="is_available"):
+        to_device(idx)
+    again = to_device(idx, "cpu")
+    assert again.ent_key.device.type == "cpu"
+    assert torch.equal(again.ent_key, cpu.ent_key)
 
 
 def _reads(contigs, rng, n, L=150, err=0.03):

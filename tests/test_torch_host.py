@@ -106,3 +106,29 @@ def test_port_bgzf_writer_raises_without_codec(tmp_path, monkeypatch):
     w.write(b"ACGT" * 100)
     with pytest.raises(RuntimeError, match="BGZF codec"):
         w.close()
+
+
+class _FailingCodec:
+    """A BGZF codec library whose calls all return an error code."""
+
+    def __init__(self, with_at: bool):
+        self.bgzf_compress_blocks = lambda *a: -3
+        self.bgzf_decompress_blocks = lambda *a: -3
+        if with_at:
+            self.bgzf_decompress_blocks_at = lambda *a: -3
+
+
+@pytest.mark.parametrize("call", ["compress", "decompress", "decompress_at"])
+def test_port_bgzf_codec_error_raises(monkeypatch, call):
+    """The port's codec binding raises on a negative return code (the
+    original returns None, and its BGZF layer then falls back to zlib)."""
+    from pansvr_tpu_torch.io import native_bgzf
+
+    monkeypatch.setattr(native_bgzf, "get_lib",
+                        lambda: _FailingCodec(call == "decompress_at"))
+    with pytest.raises(RuntimeError, match="codec failed"):
+        if call == "compress":
+            native_bgzf.compress(b"ACGT" * 100)
+        else:
+            # one 28-byte block whose ISIZE trailer (last 4 bytes) is 0
+            native_bgzf.decompress_blocks(bytes(28), [0], [28])
