@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""On-card smoke run of the PyTorch/CUDA port of fc_aln (pansvr_tpu_torch).
+"""On-card smoke run of the PyTorch/CUDA port (pansvr_tpu_torch): fc_aln,
+the on-card self-check, fc_sv and the whole pipeline (`run`).
 
     python3 chip_smoke.py
 
@@ -21,9 +22,11 @@ Phases, each timed; any failure raises (exit code != 0, no result line):
              floor). Then at the problem counts the engine launches for
              the class (EngineConfig.dp_classes: full and residue chunks),
              on the first problems of the set: K2 bit-exact vs plain, each
-             kernel alone, K2's walk and bound
+             kernel alone, K1's bound (from those problems' band cells), K2's
+             walk and bound
   4 world    the fc_aln benchmark world (seed 123, 250k pairs, ~379k
-             signal reads) in a temporary directory
+             signal reads; genome and anchor FASTA for fc_sv) in a temporary
+             directory
   5 fc_aln   the port's CLI entry point on the whole world at -b 8192 in
              two engine configurations: stream depth 3 with device collect
              (the defaults) and depth 1 with host collect; one warm-up pass
@@ -46,16 +49,30 @@ Phases, each timed; any failure raises (exit code != 0, no result line):
   9 uniform  reads uniform over a genome (world.build_uniform_world,
              24,576 reads at -b 2048): the compaction budget engages and
              the BAM records equal an uncompacted run's
- 10 checks   both kernels launched in every fc_aln path above (counters
-             reset just before each path and read just after); host
-             fallback <= 5% of the reads with a k-mer hit on the bench
-             world; no module of JAX or of the JAX package (pansvr_tpu)
-             imported
+ 10 onchip   ops.onchip_check.run_onchip_parity on the card: K1 + K2 vs the
+             scalar oracle, realigner and contig profiles at 176x256/W256
+ 11 fc_sv    the port's fc_sv entry point (--device cuda) on the bench
+             world's BAM of the last timed depth-3 pass: its VCF records equal
+             an fc_sv with the inline native DP on the same inputs, at least
+             one PASS; SV regions, DP requests (and those the card does not
+             take), chunks, wall of plan / dp.run / finish in both modes, peak
+             host RSS and GPU memory; K1 and K2 bit-exact vs plain on the
+             pass's first chunk, and alone at each chunk size it launched
+ 12 run      run_pipeline(device="cuda") on tests/test_pipeline.py's world
+             (seed 77, 4 DEL/INS, 1,600 pairs on 200 kbp): result.vcf equals
+             a second S5 over its realigned.bam with the inline DP, and at
+             least half the planted SVs come back within 40 bp
+ 13 checks   both kernels launched in every counted path above (fc_aln
+             paths, fc_sv, run; counters reset just before each path and read
+             just after); host fallback <= 5% of the reads with a k-mer hit
+             on the bench world; no module of JAX or of the JAX package
+             (pansvr_tpu) imported
 Prints a {"kernels": [...]} line (per kernel at the main shape: "ms" the
 wrapper's time, "kernel_ms" the raw launch's, "bound_ms" from this run's
 band cells, "per_pass_ms" the launches of a default fc_aln pass, each at
-its DP class and problem count, times the kernel alone there), then the
-last line
+its DP class and problem count, times the kernel alone there;
+"fc_sv_launches" those of phase 11's pass, "fc_sv_kernel_ms" the kernel
+alone on its first chunk), then the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
@@ -65,6 +82,7 @@ import resource
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import warnings
 
@@ -103,6 +121,9 @@ CONFIGS = (("depth3_device_collect", dict(stream_depth=3, collect="auto")),
 N_OVERFLOW = 32_768
 N_UNIFORM_PAIRS = 12_288
 UNIFORM_BATCH = 2048
+# phase 12's world: tests/test_pipeline.py's recipe
+RUN_WORLD = dict(seed=77, n_sv=4, n_pairs=1600, types=("DEL", "INS"),
+                 chrom_lengths={"chr1": 200_000}, err_rate=0.0)
 
 
 def log(msg):
@@ -128,6 +149,51 @@ def int_ops_per_s() -> tuple[float, float]:
         capture_output=True, text=True, check=True).stdout.split()[0])
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     return sms * ISSUE_LANES_PER_SM * mhz * 1e6, mhz
+
+
+def bound(ops_s, n_bytes):
+    """(least ms, what bounds it) of an ops time and a byte count."""
+    b_s = n_bytes / HBM_BYTES_PER_S
+    return max(ops_s, b_s) * 1e3, "operations" if ops_s >= b_s else "bytes"
+
+
+def k1_bound(n_cells, B, Q, T, W, n_diag_pad, packed, int_rate):
+    """K1 computes n_cells band cells (two per instruction when packed),
+    reads its inputs and writes 9 scalars and every direction byte."""
+    return bound(OPS_PER_CELL * n_cells / (2 if packed else 1) / int_rate,
+                 B * (Q + T + 2 * 4 + 9 * 4) + B * n_diag_pad * W)
+
+
+def k2_bound(n, n_steps, n_diag_pad):
+    """K2 reads one sector per diagonal it walks and writes its ops row."""
+    return bound(0.0, SECTOR * n_steps + n * n_diag_pad + n * (4 * 4 + 2 * 4))
+
+
+class RssPeak:
+    """Resident set size of this process when the block starts and its
+    peak while the block runs, sampled from /proc/self/statm every 10 ms
+    (bytes)."""
+
+    def __enter__(self):
+        self._page = os.sysconf("SC_PAGE_SIZE")
+        self.start = self.peak = self._now()
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._loop, daemon=True)
+        self._thread.start()
+        return self
+
+    def _now(self):
+        with open("/proc/self/statm") as fh:
+            return int(fh.read().split()[1]) * self._page
+
+    def _loop(self):
+        while not self._stop.wait(0.01):
+            self.peak = max(self.peak, self._now())
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+        self.peak = max(self.peak, self._now())
 
 
 def make_problems(rng, Q, T, n):
@@ -257,12 +323,6 @@ def kernel_parity(dev):
         f"T lane-instructions/s (SMs x {ISSUE_LANES_PER_SM} lanes x {mhz:.0f} "
         f"MHz max SM clock), HBM {HBM_BYTES_PER_S / 1e12:.2f} TB/s")
 
-    def bound(ops_s, n_bytes):
-        """(least ms, what bounds it) of an ops time and a byte count."""
-        b_s = n_bytes / HBM_BYTES_PER_S
-        return (max(ops_s, b_s) * 1e3,
-                "operations" if ops_s >= b_s else "bytes")
-
     rng = np.random.default_rng(2024)
     rows = []
     for Q, T, W, prof, n_prob, n_oracle in DP_SETS:
@@ -338,14 +398,8 @@ def kernel_parity(dev):
         walks = (ops != 3).sum(1)
         steps, longest = int(walks.sum().item()), int(walks.max().item())
         state16 = ec.packed_state(params, W)
-        k1 = bound(OPS_PER_CELL * n_cells / (2 if state16 else 1) / int_rate,
-                   B * (Q + T + 2 * 4 + 9 * 4) + B * n_diag_pad * W)
-
-        def k2_bound(n, n_steps):
-            return bound(0.0, SECTOR * n_steps + n * n_diag_pad
-                         + n * (4 * 4 + 2 * 4))
-
-        k2 = k2_bound(B, steps)
+        k1 = k1_bound(n_cells, B, Q, T, W, n_diag_pad, state16, int_rate)
+        k2 = k2_bound(B, steps, n_diag_pad)
         # the engine's chunk sizes of the class, on the first n problems
         by_n = {}
         for n in main_sizes(Q, T):
@@ -364,8 +418,10 @@ def kernel_parity(dev):
                 fwd_kernel_ms=cuda_ms(ec.fwd_raw_launcher(
                     qc[sl], ql[sl], tc[sl], tl[sl], params, W), 20),
                 tb_kernel_ms=cuda_ms(ec.tb_raw_launcher(*tb_args), 20),
+                fwd_bound_ms=k1_bound(int(cells[sl].sum().item()), n, Q, T,
+                                      W, n_diag_pad, state16, int_rate)[0],
                 tb_steps=s_n, tb_longest=int(w_n.max().item()),
-                tb_bound_ms=k2_bound(n, s_n)[0])
+                tb_bound_ms=k2_bound(n, s_n, n_diag_pad)[0])
         dead = torch.tensor([band_dies(len(q), len(t), params.w)
                              for q, t in pairs], device=dev)
         n_dead = int(dead.sum().item())
@@ -391,7 +447,9 @@ def kernel_parity(dev):
             f"plain {tb_plain_ms:.1f} ms")
         for n, v in by_n.items():
             log(f"  at {n} problems (an engine chunk): K1 alone "
-                f"{v['fwd_kernel_ms']:.4f} ms; K2 bit-exact vs plain, alone "
+                f"{v['fwd_kernel_ms']:.4f} ms, bound {v['fwd_bound_ms']:.4g} "
+                f"ms = {v['fwd_bound_ms'] / v['fwd_kernel_ms']:.1%}; K2 "
+                f"bit-exact vs plain, alone "
                 f"{v['tb_kernel_ms']:.4f} ms, {v['tb_steps']} diagonals "
                 f"walked, longest walk {v['tb_longest']}, bound "
                 f"{v['tb_bound_ms']:.4g} ms = "
@@ -654,6 +712,189 @@ def uniform_phase(w, tmp, dev, launches, n_pairs=N_UNIFORM_PAIRS,
         "uncompacted run")
 
 
+def onchip_phase(dev):
+    """Phase 10: the port's self-check on the card."""
+    from pansvr_tpu_torch.ops.onchip_check import run_onchip_parity
+
+    out = run_onchip_parity(quick=False, device=dev.type)
+    if not (out["extd2_aln"] and out["extd2_sv"]):
+        raise AssertionError(f"onchip self-check checked no case: {out}")
+    log(f"onchip self-check passed on the card, cases per profile: {out} "
+        "(sharded_dp 0: not run, the multi-GPU slice)")
+    return out
+
+
+def vcf_body(path):
+    """The record lines of a VCF file."""
+    with open(path) as fh:
+        return [line.rstrip("\n") for line in fh if not line.startswith("#")]
+
+
+def fc_sv_phase(w, bam, tmp, dev, launches, int_rate):
+    """Phase 11: the port's fc_sv entry point with the contig DP on the
+    card, against the inline native DP (ContigDpBatcher(), the default of
+    run_sv_calling) on the same inputs; then K1 and K2 on the pass's first
+    chunk (bit-exact vs plain) and alone at each chunk size it launched.
+    Returns the phase's summary."""
+    import torch
+
+    from pansvr_tpu_torch.assembly.sv_call import (
+        CONTIG_PARAMS, ContigDpBatcher, run_sv_calling)
+    from pansvr_tpu_torch.cli.main import fc_sv_inputs, parse_args, run_fc_sv
+    from pansvr_tpu_torch.ops import extd2_cuda as ec
+    from pansvr_tpu_torch.ops.extd2 import plan
+
+    cuda = dev.type == "cuda"
+    out_vcf = os.path.join(tmp, "fc_sv.vcf")
+    args = parse_args(["fc_sv", w["anchors"], bam, w["genome"], "-o", out_vcf,
+                       "-r", w["status"], "--device", dev.type])
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    with RssPeak() as rss:
+        t = time.perf_counter()
+        verdicts, dp = counted(launches, "fc_sv", lambda: run_fc_sv(args))
+        wall = time.perf_counter() - t
+    modes = {"card": dict(
+        wall_s=wall, rss_mib=rss.peak / 2**20,
+        rss_grow_mib=(rss.peak - rss.start) / 2**20,
+        gpu_mib=torch.cuda.max_memory_allocated() / 2**20 if cuda else 0.0,
+        **dp.prof)}
+    inline = ContigDpBatcher()
+    with RssPeak() as rss:
+        t = time.perf_counter()
+        verdicts_i, recs_i = run_sv_calling(bam, *fc_sv_inputs(args),
+                                            dp=inline)
+        wall = time.perf_counter() - t
+    modes["inline"] = dict(wall_s=wall, rss_mib=rss.peak / 2**20,
+                           rss_grow_mib=(rss.peak - rss.start) / 2**20,
+                           **inline.prof)
+    got = vcf_body(out_vcf)
+    n_pass = sum(v.passed for v in verdicts)
+    if got != [r.to_line() for r in recs_i] or len(verdicts) != len(verdicts_i):
+        raise AssertionError(f"fc_sv: {len(got)} VCF records on the card, "
+                             f"{len(recs_i)} with the inline DP; they differ")
+    if not n_pass:
+        raise AssertionError("fc_sv on the bench world: no PASS record")
+    p = dp.prof
+    log(f"fc_sv (bench world, {os.path.basename(bam)}): {len(verdicts)} SV "
+        f"regions, {n_pass} PASS, {len(got)} VCF records identical to the "
+        f"inline native DP's; {p['n_requests']} contig DP requests "
+        f"({p['n_requests'] / len(verdicts):.1f} per SV region), "
+        f"{p['n_scalar']} longer than Q={dp.Q} / T={dp.T} or empty (scalar "
+        f"DP), {p['n_chunks']} chunks of {p['chunks']} problems")
+    for name, m in modes.items():
+        dp_s = m["run_s"] + (m["scalar_s"] if name == "inline" else 0.0)
+        log(f"fc_sv {name}: wall {m['wall_s']:.3f} s = plan {m['plan_s']:.3f}"
+            f" + dp.run {m['run_s']:.3f} + finish {m['finish_s']:.3f} (+ the "
+            f"VCF write); DP {dp_s:.3f} s = {dp_s / m['wall_s']:.1%} of the "
+            f"wall (inline: the scalar DPs inside plan); peak host RSS of "
+            f"the process {m['rss_mib']:.1f} MiB (+{m['rss_grow_mib']:.1f} "
+            f"MiB over the phase's start)"
+            + (f", peak GPU memory {m['gpu_mib']:.1f} MiB; run(): "
+               + ", ".join(f"{k} {m[k]:.4f}" for k in (
+                   "pack_s", "upload_s", "fwd_s", "tb_s", "readback_s",
+                   "cigar_s", "scalar_s")) if name == "card" else ""))
+
+    # the kernels on the pass's own requests
+    Q, T, W, params = dp.Q, dp.T, dp.W, CONTIG_PARAMS
+    n_diag_pad = plan(Q, T, W)[1]
+    q, ql, t, tl = dp.upload(dp.first_chunk)
+    got_f = ec.extd2_fwd(q, ql, t, tl, params, W)
+    ref_f, cells = ec.extd2_fwd_plain_cells(q, ql, t, tl, params, W)
+    zd = got_f.zdropped
+    i0 = torch.where(~zd, tl - 1, torch.where(got_f.max_t >= 0, got_f.max_t,
+                                              -1)).to(torch.int32)
+    j0 = torch.where(~zd, ql - 1, torch.where(got_f.max_q >= 0, got_f.max_q,
+                                              -1)).to(torch.int32)
+    tb_args = (got_f.dmat, ql, tl, i0, j0, params, W, n_diag_pad, T)
+    got_t = ec.extd2_traceback(*tb_args)
+    ref_t = ec.extd2_traceback_plain(*tb_args)
+    if not (all(torch.equal(a, b) for a, b in zip(got_f, ref_f))
+            and all(torch.equal(a, b) for a, b in zip(got_t, ref_t))):
+        raise AssertionError("fc_sv chunk: K1 or K2 differs from its plain "
+                             "version")
+    packed = ec.packed_state(params, W)
+    by_n = {}
+    for n in sorted(set(p["chunks"]), reverse=True):
+        sl = slice(0, n)
+        walks = (got_t[0][sl] != 3).sum(1)
+        sub = tuple(x[sl] for x in tb_args[:5])
+        by_n[n] = v = dict(
+            launches=p["chunks"].count(n),
+            fwd_bound_ms=k1_bound(int(cells[sl].sum().item()), n, Q, T, W,
+                                  n_diag_pad, packed, int_rate)[0],
+            tb_bound_ms=k2_bound(n, int(walks.sum().item()), n_diag_pad)[0],
+            tb_longest=int(walks.max().item()))
+        if not cuda:
+            continue
+        v["fwd_kernel_ms"] = cuda_ms(ec.fwd_raw_launcher(
+            q[sl], ql[sl], t[sl], tl[sl], params, W), 20)
+        v["tb_kernel_ms"] = cuda_ms(ec.tb_raw_launcher(*sub, *tb_args[5:]), 20)
+        log(f"  fc_sv chunk of {n} problems ({Q}x{T} W={W}, {v['launches']} "
+            f"launch(es) a pass): K1 alone {v['fwd_kernel_ms']:.4f} ms, bound "
+            f"{v['fwd_bound_ms']:.4g} ms = "
+            f"{v['fwd_bound_ms'] / v['fwd_kernel_ms']:.1%}; K2 alone "
+            f"{v['tb_kernel_ms']:.4f} ms, bound {v['tb_bound_ms']:.4g} ms = "
+            f"{v['tb_bound_ms'] / v['tb_kernel_ms']:.1%}, longest walk "
+            f"{v['tb_longest']}; both bit-exact vs plain on the first chunk")
+    return dict(regions=len(verdicts), n_pass=n_pass, modes=modes, by_n=by_n,
+                first=by_n[max(by_n)])
+
+
+def run_phase(tmp, dev, launches):
+    """Phase 12: the whole pipeline on the card against a second S5 with
+    the inline DP; the planted SVs must come back."""
+    from pansvr_tpu_torch.assembly.sv_call import run_sv_calling
+    from pansvr_tpu_torch.cli.main import fc_sv_inputs, parse_args
+    from pansvr_tpu_torch.io.fasta import write_fasta
+    from pansvr_tpu_torch.io.vcf import VCFReader, VCFWriter, minimal_header
+    from pansvr_tpu_torch.pipeline import PipelineConfig, run_pipeline
+    from pansvr_tpu_torch.utils.simulate import make_dataset, write_sim_bam
+
+    d = os.path.join(tmp, "run")
+    os.makedirs(d)
+    ds = make_dataset(**RUN_WORLD)
+    genome, vcf, bam = (os.path.join(d, f) for f in
+                        ("genome.fa", "svs.vcf", "sim.bam"))
+    write_fasta(genome, ds.genome.items(), width=60)
+    w = VCFWriter(vcf, minimal_header([(c, len(s)) for c, s in ds.genome.items()]))
+    for r in ds.vcf_records:
+        w.write(r)
+    w.close()
+    write_sim_bam(ds, bam)
+    work = os.path.join(d, "work")
+    t = time.perf_counter()
+    out = counted(launches, "run", lambda: run_pipeline(
+        vcf, genome, bam, work, PipelineConfig(first_level_bases=11),
+        device=dev.type))
+    wall = time.perf_counter() - t
+    contig = {k: n for k, n in LAUNCH_SHAPES["run"].items() if k[1] == 704}
+    if dev.type == "cuda" and not contig:
+        raise AssertionError("run: S5 launched no contig DP on the card")
+    args = parse_args(["fc_sv", os.path.join(work, "anchors.fa"),
+                       os.path.join(work, "realigned.bam"), genome,
+                       "-r", os.path.join(work, "status.txt")])
+    _, recs = run_sv_calling(args.bam, *fc_sv_inputs(args))
+    if vcf_body(out) != [r.to_line() for r in recs]:
+        raise AssertionError("run: result.vcf differs from an inline S5 over "
+                             "its realigned.bam")
+    with VCFReader(out) as rd:
+        calls = list(rd)
+    hits = sum(any(c.chrom == sv.chrom and abs(c.pos1 - sv.pos1) <= 40
+                   and c.sv_type == sv.sv_type for c in calls)
+               for sv in ds.svs)
+    if hits < len(ds.svs) * 0.5:
+        raise AssertionError(f"run: {hits} of {len(ds.svs)} planted SVs "
+                             "recovered")
+    log(f"run (seed {RUN_WORLD['seed']}, {RUN_WORLD['n_sv']} DEL/INS, "
+        f"{RUN_WORLD['n_pairs']} pairs): {wall:.2f} s, {len(calls)} records "
+        f"identical to an inline S5, {hits} of {len(ds.svs)} planted SVs "
+        f"recovered; launches {launches['run']}, by (kernel, Tmax, W, "
+        f"problems) {LAUNCH_SHAPES['run']}")
+    return dict(wall_s=wall, records=len(calls), hits=hits)
+
+
 def main():
     t_start = time.perf_counter()
     secs = {}
@@ -739,13 +980,27 @@ def main():
         uniform_phase(w, tmp, dev, launches)
         secs["uniform"] = time.perf_counter() - t
 
-    # phase 10
+        t = time.perf_counter()
+        onchip_phase(dev)
+        secs["onchip"] = time.perf_counter() - t
+
+        t = time.perf_counter()
+        sv = fc_sv_phase(w, bench[CONFIGS[0][0]]["bam"], tmp, dev, launches,
+                         int_ops_per_s()[0])
+        secs["fc_sv"] = time.perf_counter() - t
+
+        t = time.perf_counter()
+        run_phase(tmp, dev, launches)
+        secs["run"] = time.perf_counter() - t
+
+    # phase 13
     for path, counts in launches.items():
         for k in ("extd2_fwd", "extd2_tb"):
             if counts[k] <= 0:
                 raise AssertionError(f"{k} was not launched on path {path}")
     total = {k: sum(c[k] for c in launches.values())
              for k in ("extd2_fwd", "extd2_tb")}
+    log(f"kernel launches per counted path: {launches}; in all {total}")
     hit = max(int(main_prof["n_hit_reads"]), 1)
     if main_prof["n_fallback"] > MAX_FALLBACK * hit:
         raise AssertionError(
@@ -774,7 +1029,9 @@ def main():
          "plain_ms": main_row["fwd_plain_ms"],
          "bound_ms": main_row["fwd_bound_ms"],
          "bound_by": main_row["fwd_bound_by"], "library_ms": None,
-         "per_pass_ms": per_pass["extd2_fwd"]},
+         "per_pass_ms": per_pass["extd2_fwd"],
+         "fc_sv_launches": launches["fc_sv"]["extd2_fwd"],
+         "fc_sv_kernel_ms": sv["first"]["fwd_kernel_ms"]},
         {"name": "extd2_tb", "route": "cuda",
          "source": "pansvr_tpu_torch/csrc/extd2_tb.cu",
          "replaces": "pansvr_tpu/ops/extd2_pallas.py:484",
@@ -784,7 +1041,9 @@ def main():
          "plain_ms": main_row["tb_plain_ms"],
          "bound_ms": main_row["tb_bound_ms"],
          "bound_by": main_row["tb_bound_by"], "library_ms": None,
-         "per_pass_ms": per_pass["extd2_tb"]},
+         "per_pass_ms": per_pass["extd2_tb"],
+         "fc_sv_launches": launches["fc_sv"]["extd2_tb"],
+         "fc_sv_kernel_ms": sv["first"]["tb_kernel_ms"]},
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

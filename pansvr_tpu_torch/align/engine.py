@@ -40,10 +40,8 @@ read length) take that exact host path. The native glue library is
 required.
 
 Not ported here: the multi-chip mesh (pansvr_tpu/parallel/mesh.py and
-the JAX engine's sharded front/chain/DP). The port as a whole still
-lacks, in order: the fc_sv contig DP on the card
-(pansvr_tpu/assembly/sv_call.py ContigDpBatcher), ops/onchip_check.py,
-and that mesh.
+the JAX engine's sharded front/chain/DP), the one part of the JAX
+package the port still lacks.
 """
 
 from __future__ import annotations

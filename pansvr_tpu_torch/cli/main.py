@@ -1,13 +1,16 @@
-"""Command line of the PyTorch/CUDA port: the fc_aln stage.
+"""Command line of the PyTorch/CUDA port, with the JAX package's
+subcommands (pansvr_tpu/cli/main.py; the reference's surface,
+src/main.cpp:47-80): fc_anchor_ref, fc_index, fc_signal, fc_aln, fc_sv,
+assembly_test, sv_calling, tools, plus `run` (the panSVR_run.sh
+equivalent driving all stages).
 
-    python -m pansvr_tpu_torch fc_aln INDEX_DIR SIGNAL_FQ HEADER_SAM \\
-        [-o output.bam] [-p ori.bam] [-r status.txt] [-b 2048] \\
-        [--device cuda|cpu] [--trace DIR]
+    python -m pansvr_tpu_torch <command> [options]
 
-Same positionals and flags as ``python -m pansvr_tpu fc_aln``, plus
---device (default cuda; asking for cuda where there is none raises, the
-plain CPU path takes an explicit --device cpu). The other subcommands
-live in ``python -m pansvr_tpu``.
+Same positionals and flags as ``python -m pansvr_tpu``, plus --device on
+fc_aln, fc_sv and run: where the realignment engine and the contig DP
+run (default cuda; asking for cuda where there is none raises, the plain
+CPU path takes an explicit --device cpu). Their output files are the
+JAX package's, byte for byte.
 
 Like the JAX CLI, fc_aln starts the engine from INDEX_DIR/engine_tune.json
 (the lane budgets a previous run on that index converged to; either
@@ -22,8 +25,56 @@ import itertools
 import os
 import sys
 
-OTHER_COMMANDS = ("fc_anchor_ref", "fc_index", "fc_signal", "fc_sv", "run",
-                  "assembly_test", "sv_calling", "tools")
+
+def _fl_arg(v: str):
+    """--first-level: an int, or 'auto' (size the 4^fl bucket table to
+    the k-mer population; see index.builder.resolve_first_level)."""
+    return v if v == "auto" else int(v)
+
+
+def _cmd_fc_anchor_ref(args):
+    from ..anchor.builder import AnchorConfig, run_anchor_ref
+    from ..io.fasta import Faidx
+
+    cfg = AnchorConfig(
+        edge_len=args.edge_len, min_sv_len=args.min_sv_len,
+        sv_type=args.sv_type, discard_decoy=args.discard_decoy,
+    )
+    run_anchor_ref(args.vcf, Faidx(args.ref), sys.stdout, cfg)
+
+
+def _cmd_fc_index(args):
+    from ..index.builder import build_index
+    from ..index.store import save_index
+    from ..io.fasta import read_fasta
+
+    idx = build_index(
+        list(read_fasta(args.anchors_fa).items()),
+        first_level_bases=args.first_level,
+    )
+    save_index(idx, args.index_dir)
+    print(
+        f"index: {len(idx.chr_names)} contigs, {idx.n_kmers} kmers, "
+        f"{idx.n_unitigs} unitigs -> {args.index_dir}", file=sys.stderr,
+    )
+
+
+def _cmd_fc_signal(args):
+    from ..signal.extract import SignalOptions, extract_signal
+
+    opts = SignalOptions(
+        discard_both_full_match=args.discard_full_match,
+        not_using_filter=args.not_use_filter,
+    )
+    ref = None
+    if args.ref:
+        from ..io.fasta import Faidx
+        ref = Faidx(args.ref)
+    out = open(args.output, "w") if args.output != "-" else sys.stdout
+    stats = extract_signal(args.bam, out, opts=opts, ref=ref)
+    if args.status_file:
+        with open(args.status_file, "w") as fh:
+            fh.write(stats.status_file_text())
 
 
 def run_fc_aln(args, config=None):
@@ -37,7 +88,7 @@ def run_fc_aln(args, config=None):
     from ..index.store import load_any
     from ..io.bam import BamHeader, BamWriter
     from ..signal.extract import SignalStats
-    from ..signal_fq import parse_signal_comment, read_signal_fastq
+    from ..pipeline import parse_signal_comment, read_signal_fastq
 
     idx = load_any(args.index_dir)
     header = BamHeader.from_sam_text(open(args.header_sam).read())
@@ -183,10 +234,136 @@ def _run_aln_stream(chunks_a, eng, pe, writer, ori_writer, header, filt,
         ori_writer.close()
 
 
+def fc_sv_inputs(args):
+    """(SVRefSequence, SvCallOptions) of an fc_sv command line."""
+    from ..assembly.sv_call import SVRefSequence, SvCallOptions
+    from ..io.bam import BamReader
+    from ..io.fasta import Faidx, read_fasta
+    from ..signal.extract import SignalStats
+
+    anchors = read_fasta(args.anchors_fa)
+    with BamReader(args.bam) as rd:
+        ori_names = list(rd.header.ref_names)
+    stats = SignalStats.parse_status_text(open(args.status_file).read()) \
+        if args.status_file else SignalStats(read_len=150, ave_read_depth=30.0)
+    sf = SVRefSequence(list(anchors.keys()), anchors, Faidx(args.ref), ori_names)
+    opts = SvCallOptions(
+        edge_len=args.edge_len,
+        normal_read_len=stats.read_len or 150,
+        ave_read_depth=max(stats.ave_read_depth, 1.0),
+        st_chr=args.st_chr, ed_chr=args.ed_chr,
+        print_detail=args.print_detail, depth_detail=args.depth_detail,
+    )
+    return sf, opts
+
+
+def run_fc_sv(args):
+    """realigned BAM -> VCF; returns (verdicts, the ContigDpBatcher, whose
+    .prof holds the DP's counts and phase seconds)."""
+    from ..assembly.sv_call import ContigDpBatcher, run_sv_calling
+
+    dp = ContigDpBatcher(device=args.device)
+    verdicts, records = run_sv_calling(args.bam, *fc_sv_inputs(args), dp=dp)
+    out = open(args.output, "w") if args.output != "-" else sys.stdout
+    out.write("##fileformat=VCFv4.2\n##source=pansvr_tpu\n")
+    out.write("#CHROM\tPOS\tID\tREF\tALT\tQUAL\tFILTER\tINFO\tFORMAT\tSample\n")
+    for rec in records:
+        out.write(rec.to_line() + "\n")
+    if out is not sys.stdout:
+        out.close()
+    n_pass = sum(1 for v in verdicts if v.passed)
+    print(f"{n_pass}/{len(verdicts)} SV regions PASS", file=sys.stderr)
+    return verdicts, dp
+
+
+def _cmd_run(args):
+    from ..pipeline import PipelineConfig, run_pipeline
+
+    out = run_pipeline(args.vcf, args.ref, args.bam, args.workdir,
+                       PipelineConfig(first_level_bases=args.first_level,
+                                      sv_shards=args.sv_shards),
+                       device=args.device)
+    print(out)
+
+
+def _cmd_assembly_test(args):
+    from ..assembly.assembler import AssemblyManager
+
+    am = AssemblyManager()
+    for line in sys.stdin:
+        seq = line.strip()
+        if seq:
+            am.add_read(seq)
+    for c in am.assemble():
+        print(
+            f"CONTIG size: [{len(c.seq)}] seedCount: [{c.seed_read_count}] "
+            f"supportReads: [{len(c.support_reads)}] "
+            f"ending_reason: [{c.ending_reason[0]} {c.ending_reason[1]}]"
+        )
+        print(c.seq)
+
+
+def _cmd_sv_calling(args):
+    from ..assembly.denovo import DeNovoCaller, DeNovoOptions
+    from ..io.fasta import Faidx
+
+    caller = DeNovoCaller(
+        Faidx(args.ref),
+        DeNovoOptions(min_support=args.min_support),
+    )
+    records = caller.call_bam(args.bam)
+    out = open(args.output, "w") if args.output != "-" else sys.stdout
+    out.write("##fileformat=VCFv4.2\n##source=pansvr_tpu-denovo\n")
+    out.write("#CHROM\tPOS\tID\tREF\tALT\tQUAL\tFILTER\tINFO\tFORMAT\tSample\n")
+    for rec in records:
+        out.write(rec.to_line() + "\n")
+    if out is not sys.stdout:
+        out.close()
+    print(f"{len(records)} de novo SV calls", file=sys.stderr)
+
+
+def _cmd_tools(args):
+    from . import tools
+
+    tools.dispatch(args.tool, args.tool_args)
+
+
+def _device_arg(s, what):
+    s.add_argument("--device", default="cuda",
+                   help=f"torch device of {what}: cuda (default; raises "
+                        "when absent) or cpu (plain PyTorch kernels)")
+
+
 def parse_args(argv):
     p = argparse.ArgumentParser(prog="pansvr_tpu_torch", description=__doc__,
                                 formatter_class=argparse.RawTextHelpFormatter)
     sub = p.add_subparsers(dest="cmd", required=True)
+
+    s = sub.add_parser("fc_anchor_ref", help="VCF+ref -> anchor FASTA (stdout)")
+    s.add_argument("ref")
+    s.add_argument("vcf")
+    s.add_argument("-e", "--edge-len", type=int, default=500)
+    s.add_argument("-m", "--min-sv-len", type=int, default=50)
+    s.add_argument("-T", "--sv-type", default="ALL")
+    s.add_argument("-J", "--discard-decoy", action="store_true")
+    s.set_defaults(fn=_cmd_fc_anchor_ref)
+
+    s = sub.add_parser("fc_index", help="anchor FASTA -> RdBG index dir")
+    s.add_argument("anchors_fa")
+    s.add_argument("index_dir")
+    s.add_argument("--first-level", type=_fl_arg, default="auto")
+    s.set_defaults(fn=_cmd_fc_index)
+
+    s = sub.add_parser("fc_signal", help="BAM/CRAM -> signal FASTQ")
+    s.add_argument("bam")
+    s.add_argument("-o", "--output", default="-")
+    s.add_argument("-s", "--status-file", default="status.txt")
+    s.add_argument("-U", "--discard-full-match", action="store_true")
+    s.add_argument("-D", "--not-use-filter", action="store_true")
+    s.add_argument("-f", "--ref", default=None,
+                   help="reference FASTA (required for CRAM input)")
+    s.set_defaults(fn=_cmd_fc_signal)
+
     s = sub.add_parser("fc_aln", help="signal FASTQ -> realigned BAM")
     s.add_argument("index_dir")
     s.add_argument("signal_fq")
@@ -197,23 +374,61 @@ def parse_args(argv):
                         "neither reference explains")
     s.add_argument("-r", "--status-file", default=None)
     s.add_argument("-b", "--batch", type=int, default=2048)
-    s.add_argument("--device", default="cuda",
-                   help="torch device: cuda (default; raises when absent) "
-                        "or cpu (plain PyTorch kernels)")
+    _device_arg(s, "the realignment engine")
     s.add_argument("--trace", default=None, metavar="DIR",
                    help="write a torch.profiler chrome trace of the "
                         "realignment stream to DIR/trace.json and print "
                         "the engine phase timers")
+    s.set_defaults(fn=run_fc_aln)
+
+    s = sub.add_parser("fc_sv", help="realigned BAM -> VCF")
+    s.add_argument("anchors_fa")
+    s.add_argument("bam")
+    s.add_argument("ref")
+    s.add_argument("-o", "--output", default="-")
+    s.add_argument("-r", "--status-file", default=None)
+    s.add_argument("-e", "--edge-len", type=int, default=500)
+    s.add_argument("-S", "--st-chr", type=int, default=0)
+    s.add_argument("-E", "--ed-chr", type=int, default=10000)
+    s.add_argument("-D", "--print-detail", action="store_true",
+                   help="per-read pileup renderings to stderr")
+    s.add_argument("-d", "--depth-detail", action="store_true",
+                   help="event-matrix dumps to stderr")
+    _device_arg(s, "the contig DP")
+    s.set_defaults(fn=run_fc_sv)
+
+    s = sub.add_parser("run", help="full pipeline (panSVR_run.sh equivalent)")
+    s.add_argument("ref")
+    s.add_argument("vcf")
+    s.add_argument("bam")
+    s.add_argument("workdir")
+    s.add_argument("--first-level", type=_fl_arg, default="auto")
+    s.add_argument("--sv-shards", type=int, default=1,
+                   help="fan fc_sv out over N worker processes "
+                        "(panSVR_run.sh per-chromosome fan-out analog)")
+    _device_arg(s, "the realignment engine and the contig DP")
+    s.set_defaults(fn=_cmd_run)
+
+    s = sub.add_parser("assembly_test", help="assemble reads from stdin")
+    s.set_defaults(fn=_cmd_assembly_test)
+
+    s = sub.add_parser("sv_calling", help="de novo SV caller (NovaSV analog)")
+    s.add_argument("ref")
+    s.add_argument("bam")
+    s.add_argument("-o", "--output", default="-")
+    s.add_argument("-m", "--min-support", type=int, default=3)
+    s.set_defaults(fn=_cmd_sv_calling)
+
+    s = sub.add_parser("tools", help="analysis toolbox")
+    s.add_argument("tool")
+    s.add_argument("tool_args", nargs="*")
+    s.set_defaults(fn=_cmd_tools)
     return p.parse_args(argv)
 
 
 def main(argv=None):
-    argv = sys.argv[1:] if argv is None else list(argv)
-    if argv and argv[0] in OTHER_COMMANDS:
-        print(f"pansvr_tpu_torch ports fc_aln only; run `python -m "
-              f"pansvr_tpu {argv[0]} ...` for {argv[0]}", file=sys.stderr)
-        return 2
-    run_fc_aln(parse_args(argv))
+    args = parse_args(sys.argv[1:] if argv is None else list(argv))
+    args.fn(args)
     return 0
 
 

@@ -109,16 +109,13 @@ def reference(q: np.ndarray, t: np.ndarray, params: Extd2Params):
 def ops_to_cigar_skip(ops_row: np.ndarray, i_fin: int, j_fin: int) -> list:
     """Backward op codes (0=M 1=I 2=D, 3 = no op at that diagonal) ->
     forward run-length CIGAR with the ksw_backtrack leading-gap tail."""
+    codes = np.asarray(ops_row)
+    codes = codes[codes != 3]
     out: list[tuple[str, int]] = []
-    names = "MID"
-    for code in ops_row:
-        if code == 3:
-            continue
-        op = names[code]
-        if out and out[-1][0] == op:
-            out[-1] = (op, out[-1][1] + 1)
-        else:
-            out.append((op, 1))
+    if len(codes):
+        starts = np.flatnonzero(np.diff(codes, prepend=-1))
+        runs = np.diff(np.append(starts, len(codes)))
+        out = [("MID"[int(c)], int(n)) for c, n in zip(codes[starts], runs)]
     if i_fin >= 0:
         if out and out[-1][0] == "D":
             out[-1] = ("D", out[-1][1] + i_fin + 1)

@@ -26,25 +26,30 @@ import numpy as np
 
 
 def build_bench_world(out_dir: str, n_pairs: int = 250_000) -> dict:
-    """Write the BAM, index, header, status and signal files into
-    out_dir; returns their paths. A smaller n_pairs gives a quick world
-    of the same shape for rehearsals on the CPU."""
+    """Write the BAM, index, header, status and signal files, the genome
+    and the anchor contigs (the fc_sv inputs) into out_dir; returns their
+    paths. A smaller n_pairs gives a quick world of the same shape for
+    rehearsals on the CPU."""
     from .anchor.builder import AnchorConfig, build_anchor_contigs
     from .index.builder import build_index
     from .index.store import save_index
+    from .io.fasta import write_fasta
     from .signal.extract import SignalOptions, compute_stats, extract_signal
     from .utils.simulate import DictGenome, make_dataset, write_sim_bam
 
     os.makedirs(out_dir, exist_ok=True)
     p = {k: os.path.join(out_dir, f) for k, f in (
         ("bam", "sim.bam"), ("index", "rdbg"), ("header", "header.sam"),
-        ("status", "status.sam"), ("signal", "signal.fq"))}
+        ("status", "status.sam"), ("signal", "signal.fq"),
+        ("genome", "genome.fa"), ("anchors", "anchors.fa"))}
     ds = make_dataset(
         seed=123, n_sv=64, n_pairs=n_pairs, types=("DEL", "INS"),
         chrom_lengths={"chr1": 2_000_000}, err_rate=0.02)
     write_sim_bam(ds, p["bam"])
     contigs = list(build_anchor_contigs(
         ds.vcf_records, DictGenome(ds.genome), AnchorConfig()))
+    write_fasta(p["genome"], ds.genome.items(), width=60)
+    write_fasta(p["anchors"], ((c.name, c.seq) for c in contigs), width=70)
     idx = build_index([(c.name, c.seq) for c in contigs],
                       first_level_bases=12)
     save_index(idx, p["index"])
@@ -68,7 +73,7 @@ def write_signal(template_fq: str, dst: str, seqs: list[str]) -> int:
     """Signal FASTQ of `seqs` (mates adjacent), each record taking the
     name, comment and quality (cut or padded to the read's length) of
     the template's records in order, cycled."""
-    from .signal_fq import read_signal_fastq
+    from .pipeline import read_signal_fastq
 
     tmpl = list(read_signal_fastq(template_fq))
     tmpl = tmpl[: len(tmpl) // 2 * 2]
@@ -165,7 +170,7 @@ def head_signal(src: str, dst: str, n_reads: int) -> int:
 def read_batch(signal_fq: str, n_reads: int):
     """(seqs, oris) of the first n_reads signal records, oris parsed from
     the records' comments."""
-    from .signal_fq import parse_signal_comment, read_signal_fastq
+    from .pipeline import parse_signal_comment, read_signal_fastq
 
     seqs, oris = [], []
     for rec in read_signal_fastq(signal_fq):

@@ -269,3 +269,77 @@ def test_engine_batch_makes_no_stream_sync(cuda_device, small_world, collect):
         torch.cuda.set_sync_debug_mode(0)
     assert any(s.results for s in got)
     assert eng.prof["n_event_waits"] >= 4
+
+
+@pytest.mark.cuda
+def test_contig_dp_batcher_card_matches_cpu(cuda_device):
+    """ContigDpBatcher on the card (K1 + K2 at 576x704/W192, the fc_sv
+    profile) gives the results of its plain CPU run, field for field,
+    and launches each kernel once a chunk."""
+    from dataclasses import astuple
+
+    from pansvr_tpu_torch.assembly.sv_call import ContigDpBatcher
+
+    rng = np.random.default_rng(9)
+    pairs = []
+    for i in range(70):
+        t = rng.integers(0, 4, int(rng.integers(20, 705))).astype(np.uint8)
+        if i % 3:
+            q = t[int(rng.integers(0, 10)):][:576].copy()
+            m = rng.random(len(q)) < 0.03
+            q[m] = (q[m] + 1) % 4
+        else:
+            q = rng.integers(0, 4, int(rng.integers(1, 600))).astype(np.uint8)
+        pairs.append((q, t))
+    out = []
+    for dev in ("cpu", cuda_device):
+        b = ContigDpBatcher(device=dev)
+        b.CHUNK = 32
+        ids = [b.request(q, t) for q, t in pairs]
+        ec.reset_launches()
+        b.run()
+        out.append([astuple(b.result(k)) for k in ids])
+        assert b.prof["chunks"] == [32, 32, len(pairs) - 64 - b.prof["n_scalar"]]
+    assert ec.LAUNCHES == {"extd2_fwd": 3, "extd2_tb": 3}
+    assert out[0] == out[1]
+
+
+@pytest.mark.cuda
+def test_onchip_self_check_on_card(cuda_device):
+    from pansvr_tpu_torch.ops.onchip_check import run_onchip_parity
+
+    out = run_onchip_parity(quick=False, device=cuda_device)
+    assert out["extd2_aln"] == 48 and out["extd2_sv"] > 0
+
+
+@pytest.mark.cuda
+def test_sv_fanout_workers_share_the_card(cuda_device, tmp_path):
+    """run --sv-shards: two fc_sv worker processes run their contig DP on
+    one card and merge to the VCF of one fc_sv process."""
+    from pansvr_tpu_torch.cli.main import parse_args, run_fc_sv
+    from pansvr_tpu_torch.io.fasta import write_fasta
+    from pansvr_tpu_torch.io.vcf import VCFWriter, minimal_header
+    from pansvr_tpu_torch.parallel.fanout import run_sv_fanout
+    from pansvr_tpu_torch.pipeline import PipelineConfig, run_pipeline
+    from pansvr_tpu_torch.utils.simulate import make_dataset, write_sim_bam
+
+    ds = make_dataset(seed=77, n_sv=3, n_pairs=400, types=("DEL", "INS"),
+                      chrom_lengths={"chr1": 100_000}, err_rate=0.0)
+    genome, vcf, bam = (str(tmp_path / f) for f in ("g.fa", "s.vcf", "s.bam"))
+    write_fasta(genome, ds.genome.items(), width=60)
+    w = VCFWriter(vcf, minimal_header([(c, len(s)) for c, s in ds.genome.items()]))
+    for r in ds.vcf_records:
+        w.write(r)
+    w.close()
+    write_sim_bam(ds, bam)
+    work = tmp_path / "work"
+    run_pipeline(vcf, genome, bam, str(work),
+                 PipelineConfig(first_level_bases=11), device="cpu")
+    args = [str(work / "anchors.fa"), str(work / "realigned.bam"), genome]
+    single = str(tmp_path / "single.vcf")
+    run_fc_sv(parse_args(["fc_sv", *args, "-o", single, "-r",
+                          str(work / "status.txt"), "--device", "cpu"]))
+    merged = run_sv_fanout(*args, str(tmp_path / "fan.vcf"), n_shards=2,
+                           status_file=str(work / "status.txt"), device="cuda")
+    assert "\tPASS\t" in open(single).read()
+    assert open(merged).read() == open(single).read()

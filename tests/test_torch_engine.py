@@ -179,26 +179,57 @@ def test_fc_aln_cli_matches_jax_cli(cli_world, side_channel):
 
 def test_signal_fq_matches_pipeline(cli_world):
     from pansvr_tpu import pipeline
-    from pansvr_tpu_torch import signal_fq
+    from pansvr_tpu_torch import pipeline as port_pipeline
 
     path = str(cli_world / "signal.fq")
-    recs = list(signal_fq.read_signal_fastq(path))
+    recs = list(port_pipeline.read_signal_fastq(path))
     assert recs == list(pipeline.read_signal_fastq(path))
     assert len(recs) > 50
     comments = [c for *_, c in recs] + [recs[0][3] + "_STAT_150_200_400_600"]
     for c in comments:
         (a, sa), (b, sb) = (m.parse_signal_comment(c)
-                            for m in (pipeline, signal_fq))
+                            for m in (pipeline, port_pipeline))
         # the port's OriResult is its own copy of the dataclass
         assert dataclasses.astuple(a) == dataclasses.astuple(b), c
         assert sa == sb, c
 
 
-def test_cli_points_other_commands_to_jax_package(capsys):
+class _Parsed(Exception):
+    pass
+
+
+def _cli_surface(main, monkeypatch):
+    """{subcommand: sorted positionals and option strings} of a CLI's
+    parser, caught as `main` hands it the command line."""
+    import argparse
+
+    def catch(self, *a, **k):
+        raise _Parsed(self)
+
+    monkeypatch.setattr(argparse.ArgumentParser, "parse_args", catch)
+    with pytest.raises(_Parsed) as e:
+        main(["fc_sv"])
+    monkeypatch.undo()
+    sub = next(a for a in e.value.args[0]._actions
+               if isinstance(a, argparse._SubParsersAction))
+    return {name: sorted(o for a in sp._actions
+                         for o in (a.option_strings or [a.dest]))
+            for name, sp in sub.choices.items()}
+
+
+def test_cli_accepts_every_jax_subcommand(monkeypatch):
+    """The port's parser holds every subcommand of python -m pansvr_tpu
+    with the same positionals and flags; the only additions are --device
+    on fc_aln, fc_sv and run."""
+    from pansvr_tpu.cli.main import main as jax_main
     from pansvr_tpu_torch.cli.main import main
 
-    assert main(["fc_sv", "x"]) == 2
-    assert "python -m pansvr_tpu fc_sv" in capsys.readouterr().err
+    ours = _cli_surface(main, monkeypatch)
+    theirs = _cli_surface(jax_main, monkeypatch)
+    assert sorted(ours) == sorted(theirs)
+    for cmd, opts in theirs.items():
+        extra = ["--device"] if cmd in ("fc_aln", "fc_sv", "run") else []
+        assert ours[cmd] == sorted(opts + extra), cmd
 
 
 def test_cuda_request_without_card_raises(world):
