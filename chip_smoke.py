@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """On-card smoke run of the PyTorch/CUDA port (pansvr_tpu_torch): fc_aln,
-the on-card self-check, fc_sv, the whole pipeline (`run`) and the
+the on-card self-check, fc_sv, the whole pipeline (`run`), the
 multi-GPU slice (fc_aln fan-out, the data-mesh engine, the sharded DP)
-on one card.
+and the chromosome-scale world on one card.
 
     python3 chip_smoke.py
 
@@ -76,11 +76,21 @@ Phases, each timed; any failure raises (exit code != 0, no result line):
              and K1/K2 DP; a warm-up pass, then one counted pass), its BAM
              record-identical to the same pass, its reads/s; (c)
              check_sharded_dp over [cuda:0, cuda:0] on 256 fuzzed problems
- 14 checks   both kernels launched in every counted path above (fc_aln
-             paths, fc_sv, run, the mesh engine; counters reset just before
-             each path and read just after); host fallback <= 5% of the
-             reads with a k-mer hit on the bench world; no module of JAX or
-             of the JAX package (pansvr_tpu) imported
+ 14 chrom    the chromosome-scale world (world.build_chrom_world's recipe:
+             seed 99, 2,000 DEL/INS/DUP SVs on chr1 60 Mbp + chr2 40 Mbp,
+             error 0.01, auto first level) with its pairs cut to
+             N_CHROM_PAIRS, built by scale_run's gen, anchor, index and
+             signal stages (a process each); fc_aln on the card, host
+             fallback <= 5% of the reads with a hit; the first 16,384
+             reads (or all) give identical BAM records on the CPU and the
+             card in both configurations; sort + BAI; fc_sv on the card,
+             its VCF records equal the inline native DP's
+ 15 checks   both kernels launched in every counted path above (fc_aln
+             paths, fc_sv, run, the mesh engine, the chromosome world's
+             fc_aln and fc_sv; counters reset just before each path and
+             read just after); host fallback <= 5% of the reads with a
+             k-mer hit on the bench world; no module of JAX or of the JAX
+             package (pansvr_tpu) imported
 Prints a {"kernels": [...]} line (per kernel at the main shape: "ms" the
 wrapper's time, "kernel_ms" the raw launch's, "bound_ms" from this run's
 band cells, "per_pass_ms" the launches of a default fc_aln pass, each at
@@ -88,7 +98,9 @@ its DP class and problem count, times the kernel alone there;
 "fc_sv_launches" those of phase 11's pass, "fc_sv_kernel_ms" the kernel
 alone on its first chunk, "mesh_launches" those of phase 13's counted
 data-mesh pass and "mesh_per_pass_ms" their kernel time, each launch at
-its size as phase 3 timed it), then the last line
+its size as phase 3 timed it; "chrom_launches" and
+"chrom_fc_sv_launches" those of phase 14's fc_aln and fc_sv), then the
+last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
@@ -105,6 +117,14 @@ import warnings
 REPO = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, REPO)
 
+from pansvr_tpu_torch.ops.kernel_bounds import (  # noqa: E402
+    HBM_BYTES_PER_S, ISSUE_LANES_PER_SM, cuda_ms, int_ops_per_s, k1_bound,
+    k2_bound)
+# -b of fc_aln, the parity read counts, the fallback limit and the timed
+# engine configurations: (name, EngineConfig fields)
+from pansvr_tpu_torch.scale_run import (  # noqa: E402
+    BATCH, CONFIGS, MAX_FALLBACK, N_BAM_PARITY, N_HOST_PARITY)
+
 # (Qmax, Tmax, W, profile, problems, oracle problems): the engine's DP
 # classes for the 160 and 256 read classes under the realigner's profile,
 # plus the contig profile's shape (fc_sv scoring: real z-drops, and a
@@ -115,25 +135,7 @@ DP_SETS = ((48, 64, 64, ALN, 2048, 64), (96, 128, 128, ALN, 2048, 64),
            (176, 256, 256, ALN, 2048, 64), (272, 352, 256, ALN, 2048, 64),
            (576, 704, 192, SV, 256, 16))
 MAIN_SHAPE = (48, 64, 64)   # the main path's dominant DP chunk shape
-# K1's bound: ops of the recurrence per band cell (the adds, the four-way
-# max with its direction code, the four gap flags and the band blends of
-# csrc/extd2_fwd.cu), each one 32-bit lane instruction; the packed 16-bit
-# instance does two cells per instruction (vadd2 / vmins2 / DPX 16x2)
-OPS_PER_CELL = 30
-# lane instructions per clock per SM: 4 warp instructions issue per clock,
-# and the integer ALU pipe (64 lanes) co-issues with the FMA pipe that runs
-# IMAD (64 lanes), so no mix of integer instructions goes faster
-ISSUE_LANES_PER_SM = 128
-HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3 (NVIDIA data sheet)
-SECTOR = 32                   # bytes the card moves for one scattered read
-BATCH = 8192
 N_TIMED = 3          # timed fc_aln passes after the warm-up; median reported
-N_BAM_PARITY = 16_384
-N_HOST_PARITY = 1024
-MAX_FALLBACK = 0.05
-# (name, EngineConfig fields) of the timed fc_aln configurations
-CONFIGS = (("depth3_device_collect", dict(stream_depth=3, collect="auto")),
-           ("depth1_host_collect", dict(stream_depth=1, collect="host")))
 N_OVERFLOW = 32_768
 N_UNIFORM_PAIRS = 12_288
 UNIFORM_BATCH = 2048
@@ -145,6 +147,9 @@ RUN_WORLD = dict(seed=77, n_sv=4, n_pairs=1600, types=("DEL", "INS"),
 N_FANOUT = 2
 N_MESH = 2
 N_SHARDED_DP = 256
+# phase 14: read pairs of the chromosome-scale world (its 100 Mbp genome
+# and 2,000 SVs whole), cut so that the phase takes about 2 min
+N_CHROM_PAIRS = 80_000
 
 
 def log(msg):
@@ -156,38 +161,6 @@ def card_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
     return out.splitlines()[0]
-
-
-def int_ops_per_s() -> tuple[float, float]:
-    """(integer lane instructions/s, max SM clock in MHz): SMs x
-    ISSUE_LANES_PER_SM x the maximum SM clock nvidia-smi reads (derived,
-    not a published figure)."""
-    import torch
-
-    mhz = float(subprocess.run(
-        ["nvidia-smi", "--query-gpu=clocks.max.sm",
-         "--format=csv,noheader,nounits"],
-        capture_output=True, text=True, check=True).stdout.split()[0])
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-    return sms * ISSUE_LANES_PER_SM * mhz * 1e6, mhz
-
-
-def bound(ops_s, n_bytes):
-    """(least ms, what bounds it) of an ops time and a byte count."""
-    b_s = n_bytes / HBM_BYTES_PER_S
-    return max(ops_s, b_s) * 1e3, "operations" if ops_s >= b_s else "bytes"
-
-
-def k1_bound(n_cells, B, Q, T, W, n_diag_pad, packed, int_rate):
-    """K1 computes n_cells band cells (two per instruction when packed),
-    reads its inputs and writes 9 scalars and every direction byte."""
-    return bound(OPS_PER_CELL * n_cells / (2 if packed else 1) / int_rate,
-                 B * (Q + T + 2 * 4 + 9 * 4) + B * n_diag_pad * W)
-
-
-def k2_bound(n, n_steps, n_diag_pad):
-    """K2 reads one sector per diagonal it walks and writes its ops row."""
-    return bound(0.0, SECTOR * n_steps + n * n_diag_pad + n * (4 * 4 + 2 * 4))
 
 
 class RssPeak:
@@ -271,21 +244,6 @@ def band_dies(ql, tl, w):
         if st0 > en0:
             return True
     return False
-
-
-def cuda_ms(fn, reps):
-    import torch
-
-    fn()
-    torch.cuda.synchronize()
-    a = torch.cuda.Event(enable_timing=True)
-    b = torch.cuda.Event(enable_timing=True)
-    a.record()
-    for _ in range(reps):
-        fn()
-    b.record()
-    torch.cuda.synchronize()
-    return a.elapsed_time(b) / reps
 
 
 def ptxas_summary(text: str) -> list[str]:
@@ -522,25 +480,6 @@ def per_pass_ms(rows, shapes, n_passes, what):
     return out
 
 
-def host_parity(eng, seqs, oris):
-    """The card engine vs the NumPy host aligner, field by field."""
-    got = eng.align_batch(seqs, oris)
-    n_with = 0
-    for i, (seq, ori) in enumerate(zip(seqs, oris)):
-        exp = eng.host.align_read(seq, ori)
-        if len(exp.results) != len(got[i].results):
-            raise AssertionError(f"read {i}: {len(got[i].results)} results, "
-                                 f"host aligner {len(exp.results)}")
-        for k, (a, b) in enumerate(zip(exp.results, got[i].results)):
-            for f in ("align_score", "chain_score", "direction", "ref_bg",
-                      "sv_id", "mapq", "cigar"):
-                if getattr(a, f) != getattr(b, f):
-                    raise AssertionError(
-                        f"read {i} result {k} {f}: {getattr(b, f)} vs host "
-                        f"{getattr(a, f)}")
-        n_with += bool(exp.results)
-    return n_with
-
 
 def fc_aln(w, fq, out, device, batch=BATCH, **cfg):
     """The port's fc_aln CLI entry point on a world; returns the engine."""
@@ -770,22 +709,18 @@ def onchip_phase(dev):
     return out
 
 
-def vcf_body(path):
-    """The record lines of a VCF file."""
-    with open(path) as fh:
-        return [line.rstrip("\n") for line in fh if not line.startswith("#")]
-
 
 def fc_sv_phase(w, bam, tmp, dev, launches, int_rate):
     """Phase 11: the port's fc_sv entry point with the contig DP on the
-    card, against the inline native DP (ContigDpBatcher(), the default of
-    run_sv_calling) on the same inputs; then K1 and K2 on the pass's first
+    card, against the inline native DP (ContigDpBatcher(INLINE)) on the
+    same inputs; then K1 and K2 on the pass's first
     chunk (bit-exact vs plain) and alone at each chunk size it launched.
     Returns the phase's summary."""
     import torch
 
+    from pansvr_tpu_torch import world
     from pansvr_tpu_torch.assembly.sv_call import (
-        CONTIG_PARAMS, ContigDpBatcher, run_sv_calling)
+        CONTIG_PARAMS, INLINE, ContigDpBatcher, run_sv_calling)
     from pansvr_tpu_torch.cli.main import fc_sv_inputs, parse_args, run_fc_sv
     from pansvr_tpu_torch.ops import extd2_cuda as ec
     from pansvr_tpu_torch.ops.extd2 import plan
@@ -806,7 +741,7 @@ def fc_sv_phase(w, bam, tmp, dev, launches, int_rate):
         rss_grow_mib=(rss.peak - rss.start) / 2**20,
         gpu_mib=torch.cuda.max_memory_allocated() / 2**20 if cuda else 0.0,
         **dp.prof)}
-    inline = ContigDpBatcher()
+    inline = ContigDpBatcher(INLINE)
     with RssPeak() as rss:
         t = time.perf_counter()
         verdicts_i, recs_i = run_sv_calling(bam, *fc_sv_inputs(args),
@@ -815,7 +750,7 @@ def fc_sv_phase(w, bam, tmp, dev, launches, int_rate):
     modes["inline"] = dict(wall_s=wall, rss_mib=rss.peak / 2**20,
                            rss_grow_mib=(rss.peak - rss.start) / 2**20,
                            **inline.prof)
-    got = vcf_body(out_vcf)
+    got = world.vcf_body(out_vcf)
     n_pass = sum(v.passed for v in verdicts)
     if got != [r.to_line() for r in recs_i] or len(verdicts) != len(verdicts_i):
         raise AssertionError(f"fc_sv: {len(got)} VCF records on the card, "
@@ -891,7 +826,9 @@ def fc_sv_phase(w, bam, tmp, dev, launches, int_rate):
 def run_phase(tmp, dev, launches):
     """Phase 12: the whole pipeline on the card against a second S5 with
     the inline DP; the planted SVs must come back."""
-    from pansvr_tpu_torch.assembly.sv_call import run_sv_calling
+    from pansvr_tpu_torch import world
+    from pansvr_tpu_torch.assembly.sv_call import (
+        INLINE, ContigDpBatcher, run_sv_calling)
     from pansvr_tpu_torch.cli.main import fc_sv_inputs, parse_args
     from pansvr_tpu_torch.io.fasta import write_fasta
     from pansvr_tpu_torch.io.vcf import VCFReader, VCFWriter, minimal_header
@@ -921,8 +858,9 @@ def run_phase(tmp, dev, launches):
     args = parse_args(["fc_sv", os.path.join(work, "anchors.fa"),
                        os.path.join(work, "realigned.bam"), genome,
                        "-r", os.path.join(work, "status.txt")])
-    _, recs = run_sv_calling(args.bam, *fc_sv_inputs(args))
-    if vcf_body(out) != [r.to_line() for r in recs]:
+    _, recs = run_sv_calling(args.bam, *fc_sv_inputs(args),
+                             dp=ContigDpBatcher(INLINE))
+    if world.vcf_body(out) != [r.to_line() for r in recs]:
         raise AssertionError("run: result.vcf differs from an inline S5 over "
                              "its realigned.bam")
     with VCFReader(out) as rd:
@@ -1013,6 +951,120 @@ def multi_phase(w, tmp, dev, launches, bench, n_reads):
     return out
 
 
+def chrom_phase(tmp, dev, launches):
+    """Phase 14: the chromosome-scale world (world.build_chrom_world's
+    recipe whole, N_CHROM_PAIRS read pairs) through scale_run's gen,
+    anchor, index and signal stages (a process each), then fc_aln on the
+    card (host fallback <= MAX_FALLBACK of the reads with a hit), (a) the
+    first N_BAM_PARITY reads on the CPU and the card in both
+    configurations give identical BAM records, sort + BAI, fc_sv on the
+    card and (c) its VCF records equal the inline native DP's. Returns
+    the phase's summary."""
+    import torch
+
+    from pansvr_tpu_torch import world
+    from pansvr_tpu_torch.assembly.sv_call import (
+        INLINE, ContigDpBatcher, run_sv_calling)
+    from pansvr_tpu_torch.cli.main import fc_sv_inputs, parse_args, run_fc_sv
+    from pansvr_tpu_torch.io.bai import build_bai, sort_bam
+
+    d = os.path.join(tmp, "chrom")
+    t = time.perf_counter()
+    r = subprocess.run(
+        [sys.executable, "-m", "pansvr_tpu_torch.scale_run", "--out", d,
+         "--pairs", str(N_CHROM_PAIRS), "--device", dev.type,
+         "--stages", "gen,anchor,index,signal"],
+        capture_output=True, text=True, cwd=REPO)
+    if r.returncode:
+        raise AssertionError(f"chromosome world: scale_run rc={r.returncode}"
+                             f"\n{r.stdout[-2000:]}\n{r.stderr[-2000:]}")
+    with open(os.path.join(d, "report.json")) as fh:
+        rep = json.load(fh)
+    out = dict(build_s=time.perf_counter() - t, pairs=N_CHROM_PAIRS,
+               reads=rep["signal_reads"],
+               stages={k: {f: round(v[f], 3)
+                           for f in ("wall_s", "peak_rss_gib")}
+                       for k, v in rep["stages"].items()})
+    w = world.chrom_paths(d)
+    log(f"chromosome world ({N_CHROM_PAIRS} pairs, 2,000 SVs on chr1 + chr2):"
+        f" {out['reads']} signal reads in {out['build_s']:.1f} s; stage wall "
+        f"s and peak RSS GiB {out['stages']}")
+
+    cuda = dev.type == "cuda"
+    aln = os.path.join(d, "aln.bam")
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    eng = counted(launches, "chrom", lambda: fc_aln(w, w["signal"], aln,
+                                                    dev.type))
+    if cuda:
+        torch.cuda.synchronize()
+    out["aln_s"] = time.perf_counter() - t
+    p = eng.prof
+    hit = max(int(p["n_hit_reads"]), 1)
+    out.update(aln_reads_per_s=int(p["n_reads"]) / out["aln_s"],
+               hit_reads=hit, fallback=int(p["n_fallback"]),
+               widenings=int(p["n_widen"]), retries=int(p["n_retry"]),
+               gpu_mib=torch.cuda.max_memory_allocated() / 2**20 if cuda
+               else 0.0)
+    log(f"chromosome world fc_aln on the card: {int(p['n_reads'])} reads in "
+        f"{out['aln_s']:.3f} s = {out['aln_reads_per_s']:.1f} reads/s; "
+        f"{hit} with a k-mer hit, host fallback {out['fallback']} "
+        f"({out['fallback'] / hit:.3%}); {out['widenings']} widenings, "
+        f"{out['retries']} batch retries, budgets now nf_mult "
+        f"{eng.cfg.nf_mult} mem_slots {eng.cfg.mem_slots}; peak GPU memory "
+        f"{out['gpu_mib']:.1f} MiB; launches by (kernel, Tmax, W, problems) "
+        f"{LAUNCH_SHAPES['chrom']}")
+    if out["fallback"] > MAX_FALLBACK * hit:
+        raise AssertionError(f"chromosome world: host fallback "
+                             f"{out['fallback']} > {MAX_FALLBACK:.0%} of {hit}")
+
+    head = os.path.join(d, "head.fq")
+    n_head = world.head_signal(w["signal"], head, N_BAM_PARITY)
+    bams = []
+    for device, name, cfg in [("cpu", "default", {})] + [
+            (dev.type, name, cfg) for name, cfg in CONFIGS]:
+        drop_tuning(w)
+        bams.append(os.path.join(d, f"head_{device}_{name}.bam"))
+        fc_aln(w, head, bams[-1], device, **cfg)
+    for b in bams[1:]:
+        out["parity_records"] = same_bam(bams[0], b, f"chromosome world, "
+                                         f"first {n_head} reads, cpu vs {b}")
+    log(f"chromosome world, first {n_head} reads: {out['parity_records']} "
+        "BAM records identical between the plain CPU path and the card in "
+        "both configurations")
+
+    srt = os.path.join(d, "aln.sorted.bam")
+    sort_bam(aln, srt)
+    build_bai(srt)
+    vcf = os.path.join(d, "result.vcf")
+    args = parse_args(["fc_sv", w["anchors"], srt, w["genome"], "-o", vcf,
+                       "-r", w["status"], "--device", dev.type])
+    t = time.perf_counter()
+    verdicts, dp = counted(launches, "chrom_fc_sv", lambda: run_fc_sv(args))
+    out["fc_sv_s"] = time.perf_counter() - t
+    inline = ContigDpBatcher(INLINE)
+    t = time.perf_counter()
+    _, recs = run_sv_calling(srt, *fc_sv_inputs(args), dp=inline)
+    out["fc_sv_inline_s"] = time.perf_counter() - t
+    got = world.vcf_body(vcf)
+    if got != [rec.to_line() for rec in recs]:
+        raise AssertionError(f"chromosome world fc_sv: {len(got)} VCF records "
+                             f"on the card, {len(recs)} inline; they differ")
+    out.update(regions=len(verdicts), n_pass=sum(v.passed for v in verdicts),
+               records=len(got), requests=dp.prof["n_requests"],
+               chunks=dp.prof["chunks"])
+    log(f"chromosome world fc_sv: {out['regions']} SV regions, "
+        f"{out['n_pass']} PASS, {out['records']} VCF records identical to "
+        f"the inline native DP's; {out['requests']} contig DP requests in "
+        f"chunks {out['chunks']}; wall {out['fc_sv_s']:.3f} s on the card "
+        f"(plan {dp.prof['plan_s']:.3f}, dp.run {dp.prof['run_s']:.3f}, "
+        f"finish {dp.prof['finish_s']:.3f}), {out['fc_sv_inline_s']:.3f} s "
+        "inline")
+    return out
+
+
 def main():
     t_start = time.perf_counter()
     secs = {}
@@ -1085,7 +1137,7 @@ def main():
         geng = AlignEngine(world.load_index(w["index"]),
                            ori_chrom_names=world.header_names(w["header"]),
                            device="cuda")
-        n_with = host_parity(geng, seqs, oris)
+        n_with = world.host_parity(geng, seqs, oris)
         secs["parity_host"] = time.perf_counter() - t
         log(f"first {N_HOST_PARITY} reads: card engine == NumPy host aligner "
             f"({n_with} reads with alignments)")
@@ -1115,7 +1167,11 @@ def main():
         multi_phase(w, tmp, dev, launches, bench, n_reads)
         secs["multi"] = time.perf_counter() - t
 
-    # phase 14
+        t = time.perf_counter()
+        chrom_phase(tmp, dev, launches)
+        secs["chrom"] = time.perf_counter() - t
+
+    # phase 15
     for path, counts in launches.items():
         for k in ("extd2_fwd", "extd2_tb"):
             if counts[k] <= 0:
@@ -1157,6 +1213,8 @@ def main():
          "per_pass_ms": per_pass["extd2_fwd"],
          "fc_sv_launches": launches["fc_sv"]["extd2_fwd"],
          "mesh_launches": launches["mesh"]["extd2_fwd"],
+         "chrom_launches": launches["chrom"]["extd2_fwd"],
+         "chrom_fc_sv_launches": launches["chrom_fc_sv"]["extd2_fwd"],
          "mesh_per_pass_ms": mesh_pass["extd2_fwd"],
          "fc_sv_kernel_ms": sv["first"]["fwd_kernel_ms"]},
         {"name": "extd2_tb", "route": "cuda",
@@ -1171,6 +1229,8 @@ def main():
          "per_pass_ms": per_pass["extd2_tb"],
          "fc_sv_launches": launches["fc_sv"]["extd2_tb"],
          "mesh_launches": launches["mesh"]["extd2_tb"],
+         "chrom_launches": launches["chrom"]["extd2_tb"],
+         "chrom_fc_sv_launches": launches["chrom_fc_sv"]["extd2_tb"],
          "mesh_per_pass_ms": mesh_pass["extd2_tb"],
          "fc_sv_kernel_ms": sv["first"]["tb_kernel_ms"]},
     ]}), flush=True)

@@ -16,10 +16,10 @@ in contig space — see align/host_align.py docstring).
 
 The port's copy of pansvr_tpu/assembly/sv_call.py. Its ContigDpBatcher
 runs the contig DP through the port's extd2 kernels on a torch device
-(ops/extd2_cuda.py: K1 + K2 on the card, their plain versions on the
-CPU) or, by default, through the native scalar DP per request; the
-native glue library is required where the original falls back to Python
-(the scalar DP, the SV read index).
+(ops/extd2_cuda.py: K1 + K2 on the card, the default; their plain
+versions on the CPU) or, when asked for by name (INLINE), through the
+native scalar DP per request; the native glue library is required where
+the original falls back to Python (the scalar DP, the SV read index).
 """
 
 from __future__ import annotations
@@ -341,6 +341,9 @@ CONTIG_DP = dict(match=2, mismatch=-10, q=24, e=2, q2=32, e2=1,
 
 
 CONTIG_PARAMS = Extd2Params(**CONTIG_DP)
+# ContigDpBatcher(device=INLINE): each request resolved at once by the
+# native scalar DP (the original's default, device=False)
+INLINE = "inline"
 
 
 def _scalar_contig_dp(qseq, tseq):
@@ -364,16 +367,17 @@ class ContigDpBatcher:
     every SV (assembly + voting + DP request collection), then run()
     resolves every request, then verdicts are finished.
 
-    device=None (the default, as the original's device=False): each
-    request is resolved at once by the native scalar DP. device="cuda"
-    or "cpu" (or a torch.device): run() packs the requests that fit the
-    (Q, T) shape into chunks of at most CHUNK problems, uploads each chunk
-    once, runs the extd2 forward sweep and traceback of ops/extd2_cuda at
-    window W (K1 + K2 on a CUDA device, raising without one; their plain
-    versions on the CPU) and reads the results back once; a request
-    longer than Q or T, or with an empty query, takes the scalar DP. Both
-    modes give the same Ez fields that finish_sv reads (the device mode
-    fills score, mqe, max, max_q, max_t, zdropped and the CIGAR).
+    device="cuda" (the default), "cpu" or a torch.device: run() packs
+    the requests that fit the (Q, T) shape into chunks of at most CHUNK
+    problems, uploads each chunk once, runs the extd2 forward sweep and
+    traceback of ops/extd2_cuda at window W (K1 + K2 on a CUDA device,
+    raising without one; their plain versions on the CPU) and reads the
+    results back once; a request
+    longer than Q or T, or with an empty query, takes the scalar DP.
+    device=INLINE (the original's default, device=False): each request is
+    resolved at once by the native scalar DP. Both modes give the same Ez
+    fields that finish_sv reads (the device mode fills score, mqe, max,
+    max_q, max_t, zdropped and the CIGAR).
 
     prof counts requests, scalar requests and chunks, lists each chunk's
     problem count, and sums the seconds of each phase of run(): pack (host
@@ -385,9 +389,11 @@ class ContigDpBatcher:
 
     CHUNK = 512     # problems a launch at most (the original's 4 * BLK)
 
-    def __init__(self, device=None, Q: int = 576, T: int = 704,
+    def __init__(self, device="cuda", Q: int = 576, T: int = 704,
                  W: int = 192):
-        if device is not None:
+        if device == INLINE:
+            device = None   # no device: the scalar DP at request time
+        else:
             from ..index.device import resolve_device
 
             device = resolve_device(device)
@@ -1158,9 +1164,8 @@ def run_sv_calling(bam_path: str, sf: SVRefSequence,
     batched device program, then verdicts are finished — the fc_sv analog
     of the realigner's collect/replay."""
     o = opts or SvCallOptions()
-    # default DP = inline native C++ kernel (ContigDpBatcher() ->
-    # _scalar_contig_dp), as in the original; fc_sv and run on the command
-    # line pass ContigDpBatcher(device=...) and run the DP on the card
+    # default DP = K1 + K2 on the card (ContigDpBatcher()); the original's
+    # inline native C++ kernel is ContigDpBatcher(INLINE)
     caller = SvCaller(sf, o, dp=dp, detail_out=detail_out)
     prof = caller.dp.prof
     t0 = time.perf_counter()

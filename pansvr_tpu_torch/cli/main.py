@@ -260,6 +260,17 @@ def fc_sv_inputs(args):
     return sf, opts
 
 
+def write_sv_vcf(path: str, records) -> None:
+    """fc_sv's VCF of `records` at path ("-": standard output)."""
+    out = open(path, "w") if path != "-" else sys.stdout
+    out.write("##fileformat=VCFv4.2\n##source=pansvr_tpu\n")
+    out.write("#CHROM\tPOS\tID\tREF\tALT\tQUAL\tFILTER\tINFO\tFORMAT\tSample\n")
+    for rec in records:
+        out.write(rec.to_line() + "\n")
+    if out is not sys.stdout:
+        out.close()
+
+
 def run_fc_sv(args):
     """realigned BAM -> VCF; returns (verdicts, the ContigDpBatcher, whose
     .prof holds the DP's counts and phase seconds)."""
@@ -267,13 +278,7 @@ def run_fc_sv(args):
 
     dp = ContigDpBatcher(device=args.device)
     verdicts, records = run_sv_calling(args.bam, *fc_sv_inputs(args), dp=dp)
-    out = open(args.output, "w") if args.output != "-" else sys.stdout
-    out.write("##fileformat=VCFv4.2\n##source=pansvr_tpu\n")
-    out.write("#CHROM\tPOS\tID\tREF\tALT\tQUAL\tFILTER\tINFO\tFORMAT\tSample\n")
-    for rec in records:
-        out.write(rec.to_line() + "\n")
-    if out is not sys.stdout:
-        out.close()
+    write_sv_vcf(args.output, records)
     n_pass = sum(1 for v in verdicts if v.passed)
     print(f"{n_pass}/{len(verdicts)} SV regions PASS", file=sys.stderr)
     return verdicts, dp

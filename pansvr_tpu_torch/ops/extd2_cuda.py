@@ -22,6 +22,7 @@ Layouts (problems on axis 0, unlike the Pallas (G, ..., 128) lanes):
 
 from __future__ import annotations
 
+import contextlib
 from typing import NamedTuple
 
 import torch
@@ -41,6 +42,9 @@ from .extd2 import (
 # in all and by DP shape and problem count: {(kernel, Tmax, W, B): n}
 LAUNCHES = {"extd2_fwd": 0, "extd2_tb": 0}
 LAUNCHES_BY_SHAPE: dict = {}
+# while a dict (keep_samples): the wrapper arguments of the last launch at
+# each (kernel, Tmax, W, B), for timing a pass's kernels alone afterwards
+SAMPLES: dict | None = None
 
 _I32 = torch.int32
 _I32MAX = 0x7FFFFFFF
@@ -59,10 +63,24 @@ def reset_launches() -> None:
     LAUNCHES_BY_SHAPE.clear()
 
 
-def _count(kernel: str, Tmax: int, W: int, B: int) -> None:
+@contextlib.contextmanager
+def keep_samples():
+    """Within the block, keep the arguments of each shape's last launch
+    in the dict it yields."""
+    global SAMPLES
+    SAMPLES = {}
+    try:
+        yield SAMPLES
+    finally:
+        SAMPLES = None
+
+
+def _count(kernel: str, Tmax: int, W: int, B: int, args: tuple) -> None:
     LAUNCHES[kernel] += 1
     key = (kernel, Tmax, W, B)
     LAUNCHES_BY_SHAPE[key] = LAUNCHES_BY_SHAPE.get(key, 0) + 1
+    if SAMPLES is not None:
+        SAMPLES[key] = args
 
 
 class Extd2Out(NamedTuple):
@@ -404,7 +422,7 @@ def extd2_fwd(q, ql, t, tl, params: Extd2Params = Extd2Params(),
     lib, args, out, dmat, _ = _fwd_args(q, ql, t, tl, params, W)
     with device_guard(q.device):
         check(lib, lib.pansvr_extd2_fwd(*args), "extd2_fwd launch")
-    _count("extd2_fwd", t.shape[1], W, q.shape[0])
+    _count("extd2_fwd", t.shape[1], W, q.shape[0], (q, ql, t, tl, params, W))
     return Extd2Out(out[0], out[1], out[2], out[3], out[4], out[5], out[6],
                     out[7], out[8] > 0, dmat)
 
@@ -483,7 +501,8 @@ def extd2_traceback(dmat, ql, tl, i0, j0, params: Extd2Params, W: int,
                                       n_diag_pad, Tmax)
     with device_guard(dmat.device):
         check(lib, lib.pansvr_extd2_tb(*args), "extd2_traceback launch")
-    _count("extd2_tb", Tmax, W, dmat.shape[0])
+    _count("extd2_tb", Tmax, W, dmat.shape[0],
+           (dmat, ql, tl, i0, j0, params, W, n_diag_pad, Tmax))
     return ops, fin[0], fin[1]
 
 

@@ -7,6 +7,12 @@ fc_signal -D -U does: about 379k signal reads), built by the port's
 copies of the same host functions (anchor, index, signal, simulate). The
 index is written as a store directory (the fc_aln INDEX_DIR positional).
 
+The chromosome-scale world (build_chrom_world) is the stand-in for a
+deployment: tools/chrom_scale_run.py's recipe (seed 99, 2,000
+DEL/INS/DUP SVs on chr1 60 Mbp + chr2 40 Mbp, 5,000,000 read pairs at
+error rate 0.01, index at the auto first level), about 100% of its
+signal reads on target.
+
 Two derived worlds drive the engine's adaptive paths:
   build_overflow_world  every read on target (a window of an anchor
                         contig): ~27 k-mer hits per read overflow the
@@ -19,10 +25,18 @@ Two derived worlds drive the engine's adaptive paths:
 
 from __future__ import annotations
 
+import heapq
 import os
 import shutil
+import struct
 
 import numpy as np
+
+# tools/chrom_scale_run.py's GEN_SRC recipe, read pairs apart
+CHROM_WORLD = dict(seed=99, n_sv=2000, types=("DEL", "INS", "DUP"),
+                   chrom_lengths={"chr1": 60_000_000, "chr2": 40_000_000},
+                   err_rate=0.01)
+CHROM_PAIRS = 5_000_000
 
 
 def build_bench_world(out_dir: str, n_pairs: int = 250_000) -> dict:
@@ -67,6 +81,173 @@ def build_bench_world(out_dir: str, n_pairs: int = 250_000) -> dict:
     p["n_kmers"] = idx.n_kmers
     p["n_unitigs"] = idx.n_unitigs
     return p
+
+
+def chrom_paths(out_dir: str) -> dict:
+    """The files of a chromosome-scale world in out_dir."""
+    return {k: os.path.join(out_dir, f) for k, f in (
+        ("vcf", "svs.vcf"), ("genome", "genome.fa"), ("header", "header.sam"),
+        ("bam", "sim.bam"), ("anchors", "anchors.fa"), ("index", "rdbg"),
+        ("signal", "signal.fq"), ("status", "status.sam"))}
+
+
+def gen_chrom_world(out_dir: str, n_pairs: int = CHROM_PAIRS,
+                    workers: int | None = None, **recipe) -> dict:
+    """GEN stage of the chromosome-scale world: make_dataset with
+    CHROM_WORLD (updated by `recipe`) and n_pairs read pairs, then
+    genome.fa, svs.vcf, header.sam and sim.bam in out_dir, the bytes
+    tools/chrom_scale_run.py's GEN_SRC writes. The BAM's records are
+    made by `workers` processes (default: one per CPU), see
+    write_sim_bam_parallel. Returns chrom_paths(out_dir) with the
+    seconds of its three steps (gen_seconds)."""
+    from .io.fasta import write_fasta
+    from .io.vcf import VCFWriter, minimal_header
+    from .utils.simulate import make_dataset
+
+    import time
+
+    os.makedirs(out_dir, exist_ok=True)
+    p = chrom_paths(out_dir)
+    t0 = time.perf_counter()
+    ds = make_dataset(n_pairs=n_pairs, **{**CHROM_WORLD, **recipe})
+    t1 = time.perf_counter()
+    write_fasta(p["genome"], ds.genome.items(), width=60)
+    w = VCFWriter(p["vcf"], minimal_header(
+        [(c, len(s)) for c, s in ds.genome.items()]))
+    for r in ds.vcf_records:
+        w.write(r)
+    w.close()
+    with open(p["header"], "w") as fh:
+        fh.write("@HD\tVN:1.6\tSO:coordinate\n")
+        for c, s in ds.genome.items():
+            fh.write(f"@SQ\tSN:{c}\tLN:{len(s)}\n")
+    t2 = time.perf_counter()
+    write_sim_bam_parallel(ds, p["bam"], workers or os.cpu_count() or 1)
+    p["gen_seconds"] = dict(make_dataset=t1 - t0, fasta_vcf=t2 - t1,
+                            sim_bam=time.perf_counter() - t2)
+    return p
+
+
+def _sim_bam_part(genome, svs, reads, path) -> int:
+    """Worker of write_sim_bam_parallel: the encoded records of `reads`
+    in sim_bam_records' order, written to path; returns their count."""
+    from .io.bam import _encode_record
+    from .utils.simulate import SimDataset, sim_bam_records
+
+    _, records = sim_bam_records(SimDataset(genome, svs, {}, reads))
+    with open(path, "wb") as fh:
+        for r in records:
+            fh.write(_encode_record(r))
+    return len(records)
+
+
+def _encoded_records(path: str):
+    """((tid, pos), record bytes) of a _sim_bam_part file, in order."""
+    with open(path, "rb") as fh:
+        while True:
+            head = fh.read(12)
+            if not head:
+                return
+            n, tid, pos = struct.unpack("<Iii", head)
+            yield (tid, pos), head + fh.read(n - 8)
+
+
+def write_sim_bam_parallel(ds, path: str, workers: int) -> None:
+    """utils.simulate.write_sim_bam(ds, path), byte for byte, with the
+    records made by `workers` processes. sim_bam_records maps every read
+    pair on its own (the alt reads scan their chromosome's segment list:
+    ~1 ms a pair at 2,000 SVs, the bulk of the chromosome world's
+    generation) and then sorts all records by (tid, pos), stably. Here
+    each worker maps and sorts one contiguous slice of ds.reads and
+    writes the encoded records to a file; the slices are merged by
+    (tid, pos), ties in slice order, which is that stable sort, and each
+    record goes to the BAM writer in one write, as write_sim_bam's
+    BamWriter.write does. Workers are spawned (the caller may hold
+    threads), so each is sent its slice and the genome."""
+    from concurrent.futures import ProcessPoolExecutor
+    from multiprocessing import get_context
+
+    from .io.bam import BamWriter
+    from .utils.simulate import SimDataset, sim_bam_records, write_sim_bam
+
+    n = len(ds.reads)
+    workers = max(1, min(workers, n // 1024))
+    if workers == 1:
+        write_sim_bam(ds, path)
+        return
+    header, _ = sim_bam_records(SimDataset(ds.genome, ds.svs, {}, []))
+    cuts = [n * k // workers for k in range(workers + 1)]
+    parts = [f"{path}.part{k}" for k in range(workers)]
+    try:
+        with ProcessPoolExecutor(workers,
+                                 mp_context=get_context("spawn")) as pool:
+            futs = [pool.submit(_sim_bam_part, ds.genome, ds.svs,
+                                ds.reads[lo:hi], part)
+                    for lo, hi, part in zip(cuts, cuts[1:], parts)]
+            for f in futs:
+                f.result()
+        with BamWriter(path, header) as w:
+            for _, rec in heapq.merge(*map(_encoded_records, parts),
+                                      key=lambda kr: kr[0]):
+                w.write_blob(rec)
+    finally:
+        for part in parts:
+            if os.path.exists(part):
+                os.remove(part)
+
+
+def anchor_chrom_world(p: dict) -> None:
+    """ANCHOR stage: anchors.fa from svs.vcf and genome.fa (what
+    `fc_anchor_ref genome.fa svs.vcf > anchors.fa` writes)."""
+    from .anchor.builder import run_anchor_ref
+    from .io.fasta import Faidx
+
+    with open(p["anchors"], "w") as fh:
+        run_anchor_ref(p["vcf"], Faidx(p["genome"]), fh)
+
+
+def index_chrom_world(p: dict):
+    """INDEX stage: the index store of anchors.fa at the auto first level
+    (`fc_index anchors.fa rdbg`); returns the host index."""
+    from .index.builder import build_index
+    from .index.store import save_index
+    from .io.fasta import read_fasta
+
+    idx = build_index(list(read_fasta(p["anchors"]).items()),
+                      first_level_bases="auto")
+    save_index(idx, p["index"])
+    return idx
+
+
+def signal_chrom_world(p: dict) -> None:
+    """SIGNAL stage: signal.fq and status.sam of sim.bam, as the
+    reference's fc_signal -D -U extracts them (`fc_signal sim.bam -o
+    signal.fq -s status.sam -U -D`)."""
+    from .signal.extract import SignalOptions, extract_signal
+
+    with open(p["signal"], "w") as fh:
+        stats = extract_signal(
+            p["bam"], fh, opts=SignalOptions(discard_both_full_match=True,
+                                             not_using_filter=True))
+    with open(p["status"], "w") as fh:
+        fh.write(stats.status_file_text())
+
+
+def build_chrom_world(out_dir: str, n_pairs: int = CHROM_PAIRS,
+                      workers: int | None = None, **recipe) -> dict:
+    """The chromosome-scale world in out_dir, stage after stage in this
+    process (scale_run runs each stage as a process of its own): GEN,
+    ANCHOR, INDEX, SIGNAL. `recipe` overrides CHROM_WORLD's fields (a
+    smaller genome or fewer SVs for tests); n_pairs alone cuts the
+    world's reads. Returns chrom_paths(out_dir) with the index's k-mer
+    and unitig counts and its first level."""
+    p = gen_chrom_world(out_dir, n_pairs, workers, **recipe)
+    del p["gen_seconds"]
+    anchor_chrom_world(p)
+    idx = index_chrom_world(p)
+    signal_chrom_world(p)
+    return dict(p, n_kmers=idx.n_kmers, n_unitigs=idx.n_unitigs,
+                first_level=idx.first_level_bases)
 
 
 def write_signal(template_fq: str, dst: str, seqs: list[str]) -> int:
@@ -179,6 +360,34 @@ def read_batch(signal_fq: str, n_reads: int):
         seqs.append(rec[1])
         oris.append(parse_signal_comment(rec[3])[0])
     return seqs, oris
+
+
+def host_parity(eng, seqs, oris) -> int:
+    """An engine's alignments of a batch against its NumPy host aligner's,
+    field by field (raises on the first difference); returns the number
+    of reads with alignments."""
+    got = eng.align_batch(seqs, oris)
+    n_with = 0
+    for i, (seq, ori) in enumerate(zip(seqs, oris)):
+        exp = eng.host.align_read(seq, ori)
+        if len(exp.results) != len(got[i].results):
+            raise AssertionError(f"read {i}: {len(got[i].results)} results, "
+                                 f"host aligner {len(exp.results)}")
+        for k, (a, b) in enumerate(zip(exp.results, got[i].results)):
+            for f in ("align_score", "chain_score", "direction", "ref_bg",
+                      "sv_id", "mapq", "cigar"):
+                if getattr(a, f) != getattr(b, f):
+                    raise AssertionError(
+                        f"read {i} result {k} {f}: {getattr(b, f)} vs host "
+                        f"{getattr(a, f)}")
+        n_with += bool(exp.results)
+    return n_with
+
+
+def vcf_body(path: str) -> list[str]:
+    """The record lines of a VCF file."""
+    with open(path) as fh:
+        return [line.rstrip("\n") for line in fh if not line.startswith("#")]
 
 
 def header_names(header_sam: str) -> list[str]:

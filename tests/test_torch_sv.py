@@ -98,8 +98,9 @@ def test_contig_dp_batcher_matches_jax_inline():
 
 
 def test_contig_dp_batcher_chunks_and_defaults():
-    """Chunks hold at most CHUNK problems; the default is the inline
-    native DP, resolved at request time as in the original."""
+    """Chunks hold at most CHUNK problems; the default is the card (a
+    missing one raises), and INLINE names the native scalar DP, resolved
+    at request time as in the original."""
     rng = np.random.default_rng(3)
     pairs = [(rng.integers(0, 4, 30).astype(np.uint8),
               rng.integers(0, 4, 40).astype(np.uint8)) for _ in range(7)]
@@ -108,7 +109,16 @@ def test_contig_dp_batcher_chunks_and_defaults():
     ids = [b.request(q, t) for q, t in pairs]
     b.run()
     assert b.prof["chunks"] == [3, 3, 1]
-    inline = sv_call.ContigDpBatcher()
+    import torch
+
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="cuda"):
+            sv_call.ContigDpBatcher()
+        with pytest.raises(RuntimeError, match="cuda"):
+            sv_call.SvCaller(None)
+    else:
+        assert sv_call.ContigDpBatcher().device.type == "cuda"
+    inline = sv_call.ContigDpBatcher(sv_call.INLINE)
     assert inline.device is None
     for (q, t), k in zip(pairs, ids):
         assert astuple(inline.result(inline.request(q, t))) == \
