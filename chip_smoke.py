@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """On-card smoke run of the PyTorch/CUDA port (pansvr_tpu_torch): fc_aln,
 the on-card self-check, fc_sv, the whole pipeline (`run`), the
-multi-GPU slice (fc_aln fan-out, the data-mesh engine, the sharded DP)
-and the chromosome-scale world on one card.
+multi-GPU slice (fc_aln fan-out, the data-mesh engine, the sharded DP),
+the chromosome-scale world and the genome world (first level 14) on one
+card.
 
     python3 chip_smoke.py
 
@@ -85,12 +86,26 @@ Phases, each timed; any failure raises (exit code != 0, no result line):
              reads (or all) give identical BAM records on the CPU and the
              card in both configurations; sort + BAI; fc_sv on the card,
              its VCF records equal the inline native DP's
- 15 checks   both kernels launched in every counted path above (fc_aln
-             paths, fc_sv, run, the mesh engine, the chromosome world's
-             fc_aln and fc_sv; counters reset just before each path and
-             read just after); host fallback <= 5% of the reads with a
-             k-mer hit on the bench world; no module of JAX or of the JAX
-             package (pansvr_tpu) imported
+ 15 genome   the genome world (world.build_genome_world's recipe: seed
+             2024, DEL/INS/DUP SVs on 24 chromosomes of 16 Mbp, error
+             0.01, index at the reference's first level 14) cut to
+             N_GENOME_SVS SVs and N_GENOME_PAIRS pairs, built by scale_run
+             --world genome's gen, anchor, index and signal stages (a
+             process each): the full 4^14 bucket table and ~4.7M k-mers;
+             fc_aln on the card (reads/s, device index bytes, host
+             fallback <= 5% of the reads with a hit); (a) the first 8,192
+             reads give identical BAM records on the CPU and the card in
+             both configurations; (e) the same reads on the card over an
+             index of the same anchors at the auto first level give them
+             too; sort + BAI; fc_sv through the region fan-out with two
+             workers on the card, its VCF records equal one fc_sv's on
+             the card over every region, PASS counted
+ 16 checks   both kernels launched in every counted path above (fc_aln
+             paths, fc_sv, run, the mesh engine, the chromosome and genome
+             worlds' fc_aln and fc_sv; counters reset just before each
+             path and read just after); host fallback <= 5% of the reads
+             with a k-mer hit on the bench world; no module of JAX or of
+             the JAX package (pansvr_tpu) imported
 Prints a {"kernels": [...]} line (per kernel at the main shape: "ms" the
 wrapper's time, "kernel_ms" the raw launch's, "bound_ms" from this run's
 band cells, "per_pass_ms" the launches of a default fc_aln pass, each at
@@ -99,8 +114,9 @@ its DP class and problem count, times the kernel alone there;
 alone on its first chunk, "mesh_launches" those of phase 13's counted
 data-mesh pass and "mesh_per_pass_ms" their kernel time, each launch at
 its size as phase 3 timed it; "chrom_launches" and
-"chrom_fc_sv_launches" those of phase 14's fc_aln and fc_sv), then the
-last line
+"chrom_fc_sv_launches" those of phase 14's fc_aln and fc_sv,
+"genome_launches" and "genome_fc_sv_launches" those of phase 15's),
+then the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
@@ -150,6 +166,13 @@ N_SHARDED_DP = 256
 # phase 14: read pairs of the chromosome-scale world (its 100 Mbp genome
 # and 2,000 SVs whole), cut so that the phase takes about 2 min
 N_CHROM_PAIRS = 80_000
+# phase 15: the genome world (24 chromosomes of 16 Mbp, index at first
+# level 14) cut to 4,000 SVs and 80,000 pairs (about 2 min); reads of its
+# parity checks (a) and (e); fc_sv fan-out workers
+N_GENOME_SVS = 4000
+N_GENOME_PAIRS = 80_000
+N_GENOME_PARITY = 8192
+N_GENOME_SV_SHARDS = 2
 
 
 def log(msg):
@@ -951,6 +974,21 @@ def multi_phase(w, tmp, dev, launches, bench, n_reads):
     return out
 
 
+def build_scale_world(d, name, dev, *opts):
+    """scale_run's gen, anchor, index and signal stages of world `name`
+    (a process each) into d; returns its report."""
+    r = subprocess.run(
+        [sys.executable, "-m", "pansvr_tpu_torch.scale_run", "--out", d,
+         "--world", name, "--device", dev.type, *opts,
+         "--stages", "gen,anchor,index,signal"],
+        capture_output=True, text=True, cwd=REPO)
+    if r.returncode:
+        raise AssertionError(f"{name} world: scale_run rc={r.returncode}"
+                             f"\n{r.stdout[-2000:]}\n{r.stderr[-2000:]}")
+    with open(os.path.join(d, "report.json")) as fh:
+        return json.load(fh)
+
+
 def chrom_phase(tmp, dev, launches):
     """Phase 14: the chromosome-scale world (world.build_chrom_world's
     recipe whole, N_CHROM_PAIRS read pairs) through scale_run's gen,
@@ -970,16 +1008,7 @@ def chrom_phase(tmp, dev, launches):
 
     d = os.path.join(tmp, "chrom")
     t = time.perf_counter()
-    r = subprocess.run(
-        [sys.executable, "-m", "pansvr_tpu_torch.scale_run", "--out", d,
-         "--pairs", str(N_CHROM_PAIRS), "--device", dev.type,
-         "--stages", "gen,anchor,index,signal"],
-        capture_output=True, text=True, cwd=REPO)
-    if r.returncode:
-        raise AssertionError(f"chromosome world: scale_run rc={r.returncode}"
-                             f"\n{r.stdout[-2000:]}\n{r.stderr[-2000:]}")
-    with open(os.path.join(d, "report.json")) as fh:
-        rep = json.load(fh)
+    rep = build_scale_world(d, "chrom", dev, "--pairs", str(N_CHROM_PAIRS))
     out = dict(build_s=time.perf_counter() - t, pairs=N_CHROM_PAIRS,
                reads=rep["signal_reads"],
                stages={k: {f: round(v[f], 3)
@@ -1062,6 +1091,143 @@ def chrom_phase(tmp, dev, launches):
         f"(plan {dp.prof['plan_s']:.3f}, dp.run {dp.prof['run_s']:.3f}, "
         f"finish {dp.prof['finish_s']:.3f}), {out['fc_sv_inline_s']:.3f} s "
         "inline")
+    return out
+
+
+def genome_phase(tmp, dev, launches):
+    """Phase 15: the genome world (world.build_genome_world's recipe on
+    its 24 chromosomes, cut to N_GENOME_SVS SVs and N_GENOME_PAIRS read
+    pairs, index at first level 14) through scale_run --world genome's
+    gen, anchor, index and signal stages (a process each), then fc_aln on
+    the card (host fallback <= MAX_FALLBACK of the reads with a hit), (a)
+    the first N_GENOME_PARITY reads on the CPU and the card in both
+    configurations give identical BAM records, (e) the same reads on the
+    card over an index of the same anchors at the auto first level give
+    them too, sort + BAI, fc_sv through the region fan-out
+    (N_GENOME_SV_SHARDS workers, each with its contig DP on the card),
+    whose VCF records equal one fc_sv on the card over every region.
+    Returns the phase's summary."""
+    import torch
+
+    from pansvr_tpu_torch import world
+    from pansvr_tpu_torch.cli.main import parse_args, run_fc_sv
+    from pansvr_tpu_torch.index.builder import build_index
+    from pansvr_tpu_torch.index.store import save_index
+    from pansvr_tpu_torch.io.bai import build_bai, sort_bam
+    from pansvr_tpu_torch.io.fasta import read_fasta
+    from pansvr_tpu_torch.parallel.fanout import run_sv_fanout
+    from pansvr_tpu_torch.scale_run import index_tensor_bytes
+
+    d = os.path.join(tmp, "genome")
+    t = time.perf_counter()
+    rep = build_scale_world(d, "genome", dev, "--svs", str(N_GENOME_SVS),
+                            "--pairs", str(N_GENOME_PAIRS))
+    ix = rep["stages"]["index"]
+    out = dict(build_s=time.perf_counter() - t, pairs=N_GENOME_PAIRS,
+               svs=N_GENOME_SVS, reads=rep["signal_reads"],
+               first_level=ix["first_level"], n_kmers=ix["n_kmers"],
+               stages={k: {f: round(v[f], 3)
+                           for f in ("wall_s", "peak_rss_gib")}
+                       for k, v in rep["stages"].items()})
+    if out["first_level"] != 14:
+        raise AssertionError(f"genome world: index at first level "
+                             f"{out['first_level']}, not 14")
+    w = world.chrom_paths(d)
+    log(f"genome world ({N_GENOME_SVS} SVs on 24 chromosomes of 16 Mbp, "
+        f"{N_GENOME_PAIRS} pairs): {out['reads']} signal reads, index at "
+        f"first level {out['first_level']} with {out['n_kmers']} k-mers, "
+        f"built in {out['build_s']:.1f} s; stage wall s and peak RSS GiB "
+        f"{out['stages']}")
+
+    cuda = dev.type == "cuda"
+    aln = os.path.join(d, "aln.bam")
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    eng = counted(launches, "genome", lambda: fc_aln(w, w["signal"], aln,
+                                                     dev.type))
+    if cuda:
+        torch.cuda.synchronize()
+    out["aln_s"] = time.perf_counter() - t
+    p = eng.prof
+    hit = max(int(p["n_hit_reads"]), 1)
+    by_tensor = index_tensor_bytes(eng.didx)
+    out.update(aln_reads_per_s=int(p["n_reads"]) / out["aln_s"],
+               stream_reads_per_s=int(p["n_reads"]) / (
+                   out["aln_s"] - p["index_upload"]),
+               hit_reads=hit, fallback=int(p["n_fallback"]),
+               widenings=int(p["n_widen"]),
+               device_index_bytes=sum(by_tensor.values()),
+               gpu_mib=torch.cuda.max_memory_allocated() / 2**20 if cuda
+               else 0.0)
+    log(f"genome world fc_aln on the card: {int(p['n_reads'])} reads in "
+        f"{out['aln_s']:.3f} s = {out['aln_reads_per_s']:.1f} reads/s "
+        f"({out['stream_reads_per_s']:.1f} after the index upload's "
+        f"{p['index_upload']:.3f} s); {hit} with a k-mer hit, host "
+        f"fallback {out['fallback']} ({out['fallback'] / hit:.3%}); "
+        f"{out['widenings']} widenings; device index "
+        f"{out['device_index_bytes']} bytes ({by_tensor}); peak GPU memory "
+        f"{out['gpu_mib']:.1f} MiB; launches by (kernel, Tmax, W, problems) "
+        f"{LAUNCH_SHAPES['genome']}")
+    if out["fallback"] > MAX_FALLBACK * hit:
+        raise AssertionError(f"genome world: host fallback {out['fallback']}"
+                             f" > {MAX_FALLBACK:.0%} of {hit}")
+
+    head = os.path.join(d, "head.fq")
+    n_head = world.head_signal(w["signal"], head, N_GENOME_PARITY)
+    bams = []
+    for device, name, cfg in [("cpu", "default", {})] + [
+            (dev.type, name, cfg) for name, cfg in CONFIGS]:
+        drop_tuning(w)
+        bams.append(os.path.join(d, f"head_{device}_{name}.bam"))
+        fc_aln(w, head, bams[-1], device, **cfg)
+    for b in bams[1:]:
+        out["a_records"] = same_bam(bams[0], b, f"genome world (a), first "
+                                    f"{n_head} reads, cpu vs {b}")
+    auto = dict(w, index=os.path.join(d, "rdbg_auto"))
+    aidx = build_index(list(read_fasta(w["anchors"]).items()),
+                       first_level_bases="auto")
+    save_index(aidx, auto["index"])
+    e_bam = os.path.join(d, "head_auto_level.bam")
+    fc_aln(auto, head, e_bam, dev.type, **CONFIGS[0][1])
+    out["e_records"] = same_bam(bams[1], e_bam, f"genome world (e), first "
+                                f"{n_head} reads, first level 14 vs "
+                                f"{aidx.first_level_bases}")
+    out["e_levels"] = [14, aidx.first_level_bases]
+    log(f"genome world, first {n_head} reads: (a) {out['a_records']} BAM "
+        f"records identical between the plain CPU path and the card in both "
+        f"configurations; (e) {out['e_records']} identical on the card at "
+        f"first levels 14 and {aidx.first_level_bases}")
+
+    srt = os.path.join(d, "aln.sorted.bam")
+    sort_bam(aln, srt)
+    build_bai(srt)
+    fan = os.path.join(d, "result_fanout.vcf")
+    t = time.perf_counter()
+    run_sv_fanout(w["anchors"], srt, w["genome"], fan, N_GENOME_SV_SHARDS,
+                  status_file=w["status"], device=dev.type)
+    out["fanout_s"] = time.perf_counter() - t
+    vcf = os.path.join(d, "result.vcf")
+    args = parse_args(["fc_sv", w["anchors"], srt, w["genome"], "-o", vcf,
+                       "-r", w["status"], "--device", dev.type])
+    t = time.perf_counter()
+    verdicts, dp = counted(launches, "genome_fc_sv", lambda: run_fc_sv(args))
+    out["fc_sv_s"] = time.perf_counter() - t
+    got = world.vcf_body(fan)
+    if got != world.vcf_body(vcf):
+        raise AssertionError(f"genome world fc_sv: the fan-out's {len(got)} "
+                             f"VCF records differ from one fc_sv's")
+    out.update(regions=len(verdicts), n_pass=sum(v.passed for v in verdicts),
+               records=len(got),
+               fanout_pass=sum(x.split("\t")[6] == "PASS" for x in got))
+    log(f"genome world fc_sv: {out['regions']} SV regions, the fan-out "
+        f"({N_GENOME_SV_SHARDS} workers, contig DP on the card) "
+        f"{out['fanout_pass']} PASS in {out['fanout_s']:.3f} s, its "
+        f"{out['records']} VCF records identical to one fc_sv on the card "
+        f"({out['n_pass']} PASS, {out['fc_sv_s']:.3f} s: plan "
+        f"{dp.prof['plan_s']:.3f}, dp.run {dp.prof['run_s']:.3f}, finish "
+        f"{dp.prof['finish_s']:.3f}; chunks {dp.prof['chunks']})")
     return out
 
 
@@ -1171,7 +1337,11 @@ def main():
         chrom_phase(tmp, dev, launches)
         secs["chrom"] = time.perf_counter() - t
 
-    # phase 15
+        t = time.perf_counter()
+        genome_phase(tmp, dev, launches)
+        secs["genome"] = time.perf_counter() - t
+
+    # phase 16
     for path, counts in launches.items():
         for k in ("extd2_fwd", "extd2_tb"):
             if counts[k] <= 0:
@@ -1215,6 +1385,8 @@ def main():
          "mesh_launches": launches["mesh"]["extd2_fwd"],
          "chrom_launches": launches["chrom"]["extd2_fwd"],
          "chrom_fc_sv_launches": launches["chrom_fc_sv"]["extd2_fwd"],
+         "genome_launches": launches["genome"]["extd2_fwd"],
+         "genome_fc_sv_launches": launches["genome_fc_sv"]["extd2_fwd"],
          "mesh_per_pass_ms": mesh_pass["extd2_fwd"],
          "fc_sv_kernel_ms": sv["first"]["fwd_kernel_ms"]},
         {"name": "extd2_tb", "route": "cuda",
@@ -1231,6 +1403,8 @@ def main():
          "mesh_launches": launches["mesh"]["extd2_tb"],
          "chrom_launches": launches["chrom"]["extd2_tb"],
          "chrom_fc_sv_launches": launches["chrom_fc_sv"]["extd2_tb"],
+         "genome_launches": launches["genome"]["extd2_tb"],
+         "genome_fc_sv_launches": launches["genome_fc_sv"]["extd2_tb"],
          "mesh_per_pass_ms": mesh_pass["extd2_tb"],
          "fc_sv_kernel_ms": sv["first"]["tb_kernel_ms"]},
     ]}), flush=True)

@@ -342,7 +342,9 @@ class AlignEngine:
             raise ValueError("collect='device' is not available on a data "
                              "mesh (the mesh path collects on the host)")
         # one index replica per distinct device of the mesh
+        t = time.perf_counter()
         self._replicas = index_replicas(self.mesh or [self.device], idx)
+        upload_s = time.perf_counter() - t
         self.didx = self._replicas[self.device]
         self.host = HostAligner(idx, self.p, ori_chrom_names=ori_chrom_names)
         self.sv_info = self.host.sv_info
@@ -374,7 +376,9 @@ class AlignEngine:
         self._tier_window: list[tuple[int, int]] = []  # (n_fallback, n)
         self._fallback_warned = False
         # wall seconds per engine phase and event counts, across batches
+        # (index_upload: the index's host tables built and uploaded)
         self.prof: dict[str, float] = defaultdict(float)
+        self.prof["index_upload"] = upload_s
         self._emit_ctx = None
         self._emit_pe = None
 

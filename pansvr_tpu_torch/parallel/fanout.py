@@ -2,10 +2,13 @@
 reference's per-chromosome bash fan-out, panSVR_run.sh:61-91).
 
 The reference launches one fc_sv process per chromosome range and
-concatenates the VCF parts; here the anchor-contig id space is split
-into `n_shards` contiguous ranges (parallel.mesh.shard_sv_regions), one
-`pansvr_tpu_torch fc_sv -S lo -E hi --device D` subprocess per range, and
-the parts are merged with parallel.mesh.merge_vcf_parts. Every worker
+concatenates the VCF parts; here the chromosomes (the BAM header's, in
+order: the indices fc_sv's -S/-E select) are split into at most
+`n_shards` contiguous ranges balanced by SV regions
+(parallel.mesh.shard_chromosomes), one `pansvr_tpu_torch fc_sv -S lo
+-E hi --device D` subprocess per range (inclusive ends), and the parts
+are merged in region order (parallel.mesh.merge_vcf_parts): the VCF of
+one fc_sv over every region. Every worker
 runs its contig DP on `device`: a few processes can share one card (each
 launches its own chunks), and they share the kernel library in
 build/kernels/, which _build.py writes by an atomic rename.
@@ -17,16 +20,26 @@ import os
 import subprocess
 import sys
 
-from .mesh import merge_vcf_parts, shard_sv_regions
+from .mesh import merge_vcf_parts, shard_chromosomes
 
 
-def count_anchor_contigs(anchors_fa: str) -> int:
-    n = 0
+def regions_per_chromosome(anchors_fa: str, bam: str) -> list[int]:
+    """SV regions (anchor contigs) on each chromosome of the BAM header,
+    by index; a contig whose chromosome the header lacks counts on
+    chromosome 0, as fc_sv places it."""
+    from ..anchor.builder import AnchorContig
+    from ..io.bam import BamReader
+
+    with BamReader(bam) as rd:
+        names = list(rd.header.ref_names)
+    index = {c: i for i, c in enumerate(names)}
+    counts = [0] * max(len(names), 1)
     with open(anchors_fa) as fh:
         for line in fh:
             if line.startswith(">"):
-                n += 1
-    return n
+                chrom = AnchorContig.parse_name(line[1:].split()[0]).chrom
+                counts[index.get(chrom, 0)] += 1
+    return counts
 
 
 def _spawn(cmd, env):
@@ -47,18 +60,18 @@ def run_sv_fanout(anchors_fa: str, bam: str, ref: str, out_vcf: str,
     times before the run raises — the elasticity analog SURVEY §2.2
     calls for (the reference's bash driver silently drops a failed
     chromosome and merges an empty part, panSVR_run.sh:78-91)."""
-    n_sv = count_anchor_contigs(anchors_fa)
-    n_shards = max(1, min(n_shards, n_sv or 1))
+    shards = shard_chromosomes(regions_per_chromosome(anchors_fa, bam),
+                               n_shards)
     env = dict(os.environ)
     if worker_env:
         env.update(worker_env)
 
     def shard_cmd(s, part):
-        rng = shard_sv_regions(n_sv, n_shards, s)
+        rng = shards[s]
         cmd = [sys.executable, "-m", "pansvr_tpu_torch", "fc_sv",
                anchors_fa, bam, ref, "-o", part,
                "-e", str(edge_len),
-               "-S", str(rng.start), "-E", str(rng.stop),
+               "-S", str(rng.start), "-E", str(rng.stop - 1),
                "--device", device]
         if status_file:
             cmd += ["-r", status_file]
@@ -66,9 +79,7 @@ def run_sv_fanout(anchors_fa: str, bam: str, ref: str, out_vcf: str,
 
     parts = []
     procs = []
-    for s in range(n_shards):
-        if len(shard_sv_regions(n_sv, n_shards, s)) == 0:
-            continue
+    for s in range(len(shards)):
         part = f"{out_vcf}.part{s}"
         parts.append(part)
         procs.append((s, part, _spawn(shard_cmd(s, part), env)))

@@ -12,7 +12,8 @@ calling across worker processes. Port of pansvr_tpu/parallel/mesh.py.
     devices, [cuda:0, cuda:0] runs the sharded code on one card;
   - region sharding for SV calling (the analog of the reference's
     per-chromosome fc_sv fan-out, panSVR_run.sh:61-91): contiguous
-    anchor-contig ranges per worker, VCF parts concatenated.
+    chromosome ranges per worker, balanced by SV regions; the VCF parts
+    merged in region order.
 
 The engine's sharded front, chain and DP (AlignEngine(mesh=...)) use the
 same slicing; tests/test_torch_distributed.py runs sharded_realign_front
@@ -149,25 +150,49 @@ def sharded_realign_front(mesh, idx: RdBGIndex, S0: int, S: int, group=None, M=1
     return fn
 
 
-def shard_sv_regions(n_sv: int, n_shards: int, shard_id: int) -> range:
-    """Contiguous anchor-contig range for one fc_sv worker (the
-    chromosome-range analog of generateVCFoptions' -S/-E options)."""
-    per = (n_sv + n_shards - 1) // n_shards
-    lo = shard_id * per
-    return range(lo, min(lo + per, n_sv))
+def shard_chromosomes(counts: list[int], n_shards: int) -> list[range]:
+    """Contiguous, disjoint ranges of chromosome indices, one per fc_sv
+    worker that has work, balanced by counts[i] (the SV regions on
+    chromosome i): the -S lo -E hi-1 of each worker, whose ends fc_sv
+    includes (generateVCFoptions' -S/-E select chromosome indices, as
+    the reference's per-chromosome fan-out passes them). The JAX
+    package splits the anchor-contig count instead: its workers get
+    -S/-E ranges of contig ids that fc_sv reads as chromosome indices,
+    so one worker takes every chromosome below the first cut and a
+    chromosome at a cut goes to two workers (duplicate VCF records)."""
+    total = max(sum(counts), 1)
+    n_shards = max(1, n_shards)
+    shard_of, cum = [], 0
+    for c in counts:
+        shard_of.append(min(n_shards - 1, cum * n_shards // total))
+        cum += c
+    out = []
+    for k in range(n_shards):
+        idx = [i for i, s in enumerate(shard_of) if s == k]
+        if idx and sum(counts[i] for i in idx):
+            out.append(range(idx[0], idx[-1] + 1))
+    return out
+
+
+def _region_id(line: str) -> int:
+    """The SV region (anchor contig id) of an fc_sv VCF record: the first
+    '_' field of its ID (the anchor name's new_ref_id)."""
+    return int(line.split("\t", 3)[2].split("_", 1)[0])
 
 
 def merge_vcf_parts(part_paths: list[str], out_path: str):
-    """Concatenate per-shard VCF parts (the driver's `cat vcfparts`
-    merge, panSVR_run.sh:93-95 — with the `>`-vs-`>>` bug fixed)."""
-    header_written = False
+    """The per-shard VCF parts as one fc_sv over every region writes
+    them: the first part's header, then the records in region order
+    (stable), which is the order of an unsharded run's plans."""
+    header, records = [], []
+    for k, p in enumerate(part_paths):
+        with open(p) as fh:
+            for line in fh:
+                if not line.startswith("#"):
+                    records.append(line)
+                elif k == 0:
+                    header.append(line)
+    records.sort(key=_region_id)
     with open(out_path, "w") as out:
-        for p in part_paths:
-            with open(p) as fh:
-                for line in fh:
-                    if line.startswith("#"):
-                        if not header_written:
-                            out.write(line)
-                        continue
-                    out.write(line)
-            header_written = True
+        out.writelines(header)
+        out.writelines(records)

@@ -1,54 +1,76 @@
-"""The chromosome-scale world end to end on the port, one process a stage
-(the port's counterpart of tools/chrom_scale_run.py).
+"""The chromosome-scale and genome worlds end to end on the port, one
+process a stage (the port's counterpart of tools/chrom_scale_run.py).
 
-    python -m pansvr_tpu_torch.scale_run --out DIR [--pairs N]
+    python -m pansvr_tpu_torch.scale_run --out DIR [--world chrom|genome]
+        [--pairs N] [--svs N] [--first-level FL] [--sv-shards N]
         [--stages gen,anchor,index,signal,aln,sort,sv,sv_inline,parity,compare]
         [--device cuda|cpu]
 
-The world is world.build_chrom_world's (seed 99, 2,000 DEL/INS/DUP SVs on
-chr1 60 Mbp + chr2 40 Mbp, error 0.01, index at the auto first level)
-with N read pairs (default 5,000,000). Stages, each in a process of its
+--world chrom (the default) is world.build_chrom_world's recipe (seed
+99, 2,000 DEL/INS/DUP SVs on chr1 60 Mbp + chr2 40 Mbp, error 0.01,
+index at the auto first level) with N read pairs (default 5,000,000);
+--world genome is world.build_genome_world's (seed 2024, 40,000
+DEL/INS/DUP SVs on 24 chromosomes of 16 Mbp, error 0.01, index at the
+reference's first level 14, 5,000,000 pairs). --svs cuts the SV count,
+--first-level sets the index's level. Stages, each in a process of its
 own, timed (wall) with the process's own peak RSS (the largest process
 of the stage: RUSAGE_CHILDREN of a wrapper around it):
 
-  gen        world.gen_chrom_world: genome.fa, svs.vcf, header.sam, sim.bam
+  gen        world.gen_chrom_world with the world's recipe: genome.fa,
+             svs.vcf, header.sam, sim.bam
   anchor     fc_anchor_ref genome.fa svs.vcf > anchors.fa
-  index      fc_index anchors.fa rdbg
+  index      fc_index anchors.fa rdbg --first-level FL; adds the index's
+             first level, k-mers and unitigs
   signal     fc_signal sim.bam -o signal.fq -s status.sam -U -D
   aln        fc_aln rdbg signal.fq header.sam -o aln.bam -b 8192
              -r status.sam --device D; adds the reads and reads/s of the
-             pass, the engine's counters and phase timers, the host
+             pass (and of the pass without the engine's index upload),
+             the engine's counters and phase timers, the front's
+             share of the pass (host_submit, sync_chain), the host
              fallback share of the reads with a k-mer hit, peak GPU
-             memory, the device index's bytes, K1/K2 launches by
-             (kernel, Tmax, W, problems) with each shape's kernel time
-             alone on its last launch's inputs and bound
-             (ops/kernel_bounds.pass_table), and the engine_tune.json
-             the run left
+             memory, the device index's bytes by tensor, the seconds and
+             the peak-RSS step of one to_device of the index before the
+             pass, K1/K2 launches by (kernel, Tmax, W, problems) with each
+             shape's kernel time alone on its last launch's inputs and
+             bound (ops/kernel_bounds.pass_table), and the
+             engine_tune.json the run left
   sort       io.bai.sort_bam + build_bai: aln.sorted.bam (+ .bai)
-  sv         fc_sv anchors.fa aln.sorted.bam genome.fa -o result.vcf
-             -r status.sam --device D; adds requests, chunks, plan / run
-             / finish seconds, the PASS count and the kernel table
-  sv_inline  the same fc_sv inputs with the inline native DP
+  sv         fc_sv over every SV region through the region fan-out
+             (parallel.fanout.run_sv_fanout, --sv-shards worker processes,
+             default one per CPU, each with its contig DP on D) ->
+             result.vcf; then, in this stage's process, fc_sv --device D
+             over the inline shard (the first of the world's chromosome
+             shards: all regions for chrom, the first of 24 for genome,
+             about 1,667 of its 40,000 regions) -> result_shard.vcf, with its
+             requests, chunks, plan / run / finish seconds, PASS count
+             and the kernel table
+  sv_inline  the inline shard with the inline native DP
              (ContigDpBatcher(INLINE)) -> result_inline.vcf
-  parity     (a) the first 16,384 signal reads: fc_aln --device cpu and
-             --device D in both engine configurations (depth 3 with
-             device collect, depth 1 with host collect) give identical
-             BAM records; (b) the first 1,024 reads: the engine on D
-             equals its HostAligner field by field; on a card, one
-             profiled depth-3 pass over the 16,384 reads gives the
+  parity     (a) the first 16,384 signal reads: fc_aln
+             --device cpu and --device D in both engine configurations
+             (depth 3 with device collect, depth 1 with host collect) give
+             identical BAM records; (b) the first 1,024 reads: the engine
+             on D equals its HostAligner field by field; (e) at a fixed
+             first level, the same reads on D over an index of the same
+             anchors at the auto first level give (a)'s BAM records; on a
+             card, one profiled depth-3 pass over the reads gives the
              device's busy share
-  compare    (c) result.vcf's records equal result_inline.vcf's; (d) if
+  compare    (c) result_shard.vcf's records equal result_inline.vcf's and
+             the fan-out's records on the shard's chromosomes; (d) if
              DIR/result_jax.vcf is there (the JAX package's fc_sv over
-             aln.sorted.bam, run as a command of its own), its records
-             too; F1 of result.vcf against the planted SVs (svs.vcf,
-             io.vcf_compare at its defaults), all records and PASS only
+             aln.sorted.bam on the inline shard's -S/-E, which the report
+             holds, run as a command of its own), its records equal
+             result_shard.vcf's; F1 of result.vcf against the planted SVs
+             (svs.vcf, io.vcf_compare at its defaults), all records and
+             PASS only, and on the shard's chromosomes for the card and
+             the JAX package
 
 fc_aln and fc_sv run their subcommand's function on the subcommand's
 argv (cli.main.parse_args, run_fc_aln / run_fc_sv) in a child that then
 writes the counters. Every stage's line goes into DIR/report.json as it
 ends; a stage that fails stops the run (exit code 1). DIR holds
-gigabytes at full size: keep it out of the repository's files (the
-repository's .gitignore lists scale_out/).
+gigabytes at full size (the genome world's ~20 GB): keep it out of the
+repository's files (the repository's .gitignore lists scale_out/).
 """
 
 from __future__ import annotations
@@ -64,6 +86,13 @@ from . import world
 
 STAGES = ("gen", "anchor", "index", "signal", "aln", "sort", "sv",
           "sv_inline", "parity", "compare")
+# each world's recipe, read pairs, index first level and the number of
+# chromosome shards whose first the inline DP and the JAX fc_sv run over
+WORLDS = dict(
+    chrom=dict(recipe=world.CHROM_WORLD, pairs=world.CHROM_PAIRS,
+               first_level="auto", inline_shards=1),
+    genome=dict(recipe=world.GENOME_WORLD, pairs=world.GENOME_PAIRS,
+                first_level=world.GENOME_FIRST_LEVEL, inline_shards=24))
 BATCH = 8192               # fc_aln -b, as tools/chrom_scale_run.py's run
 N_BAM_PARITY = 16_384
 N_HOST_PARITY = 1024
@@ -88,7 +117,8 @@ def paths(out_dir: str) -> dict:
     return dict(world.chrom_paths(out_dir), **{
         k: os.path.join(out_dir, f) for k, f in (
             ("aln", "aln.bam"), ("sorted", "aln.sorted.bam"),
-            ("vcf_card", "result.vcf"), ("vcf_inline", "result_inline.vcf"),
+            ("vcf_card", "result.vcf"), ("vcf_shard", "result_shard.vcf"),
+            ("vcf_inline", "result_inline.vcf"),
             ("vcf_jax", "result_jax.vcf"), ("report", "report.json"),
             ("parity_dir", "parity"))})
 
@@ -149,13 +179,38 @@ def _stage_argv(stage: str, p: dict, a) -> tuple[list[str], str | None]:
     if stage == "anchor":
         return port + ["fc_anchor_ref", p["genome"], p["vcf"]], p["anchors"]
     if stage == "index":
-        return port + ["fc_index", p["anchors"], p["index"]], None
+        return port + ["fc_index", p["anchors"], p["index"],
+                       "--first-level", str(a.first_level)], None
     if stage == "signal":
         return port + ["fc_signal", p["bam"], "-o", p["signal"], "-s",
                        p["status"], "-U", "-D"], None
-    return [sys.executable, "-m", "pansvr_tpu_torch.scale_run", "--out",
-            a.out, "--pairs", str(a.pairs), "--device", a.device,
-            "--child", stage], None
+    return [sys.executable, "-m", "pansvr_tpu_torch.scale_run",
+            *_option_argv(a), "--child", stage], None
+
+
+def _option_argv(a) -> list[str]:
+    """The options of a run, as a child stage takes them."""
+    out = ["--out", a.out, "--device", a.device, "--world", a.world]
+    for k in ("pairs", "svs", "first_level", "sv_shards"):
+        out += ["--" + k.replace("_", "-"), str(getattr(a, k))]
+    return out
+
+
+def recipe(a) -> dict:
+    """The world's recipe with the run's SV count."""
+    return dict(WORLDS[a.world]["recipe"], n_sv=a.svs)
+
+
+def inline_shard(p: dict, a) -> range:
+    """The chromosome indices (-S, -E + 1) of the first of the world's
+    inline_shards chromosome shards: the regions the inline DP and the
+    JAX fc_sv run over."""
+    from .parallel.fanout import regions_per_chromosome
+    from .parallel.mesh import shard_chromosomes
+
+    return shard_chromosomes(
+        regions_per_chromosome(p["anchors"], p["sorted"]),
+        WORLDS[a.world]["inline_shards"])[0]
 
 
 def _peak_rss_gib() -> float:
@@ -208,9 +263,46 @@ def _rss_now() -> dict:
     return out
 
 
-def _child_aln(p: dict, a) -> dict:
-    from dataclasses import fields
+def index_tensor_bytes(didx) -> dict:
+    """Bytes of each tensor of a DeviceIndex."""
+    import dataclasses
 
+    import torch
+
+    return {f.name: getattr(didx, f.name).numel()
+            * getattr(didx, f.name).element_size()
+            for f in dataclasses.fields(didx)
+            if isinstance(getattr(didx, f.name), torch.Tensor)}
+
+
+def _time_to_device(index_dir: str, dev) -> dict:
+    """One index.device.to_device of the index store (as the engine
+    builds it) before the pass: its seconds and its host memory, the
+    resident set before and the process's peak after (GiB); the
+    tensors are freed again."""
+    import torch
+
+    from .index.device import to_device
+
+    idx = world.load_index(index_dir)
+    before = _rss_now()["VmRSS"]
+    peak_before = _peak_rss_gib()
+    t = time.perf_counter()
+    didx = to_device(idx, dev)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    out = dict(seconds=time.perf_counter() - t, rss_before_gib=before,
+               peak_rss_before_gib=peak_before,
+               peak_rss_after_gib=_peak_rss_gib(),
+               peak_step_gib=_peak_rss_gib() - before,
+               bytes=sum(index_tensor_bytes(didx).values()))
+    del didx
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def _child_aln(p: dict, a) -> dict:
     steps = {"start": _rss_now()}
     import torch
 
@@ -225,6 +317,8 @@ def _child_aln(p: dict, a) -> dict:
 
         load_kernels()
     steps["kernels_loaded"] = _rss_now()
+    todev = _time_to_device(p["index"], dev)
+    steps["to_device_done"] = _rss_now()
     args = parse_args(["fc_aln", p["index"], p["signal"], p["header"], "-o",
                        p["aln"], "-b", str(BATCH), "-r", p["status"],
                        "--device", a.device])
@@ -242,17 +336,20 @@ def _child_aln(p: dict, a) -> dict:
     prof.update((k, float(v)) for k, v in sorted(eng.prof.items()))
     hit = max(prof["n_hit_reads"], 1.0)
     didx = eng.didx
-    index_bytes = sum(getattr(didx, f.name).numel()
-                      * getattr(didx, f.name).element_size()
-                      for f in fields(didx)
-                      if isinstance(getattr(didx, f.name), torch.Tensor))
+    by_tensor = index_tensor_bytes(didx)
     with open(os.path.join(p["index"], "engine_tune.json")) as fh:
         tune = json.load(fh)
     return dict(
         pass_s=pass_s, reads=int(prof["n_reads"]),
         reads_per_s=prof["n_reads"] / pass_s, prof=prof,
+        stream_reads_per_s=prof["n_reads"] / (pass_s
+                                              - prof["index_upload"]),
+        front_share={k: prof.get(k, 0.0) / pass_s
+                     for k in ("host_submit", "sync_chain")},
         fallback_share=prof["n_fallback"] / hit,
-        gpu_peak_mib=_gpu_peak_mib(dev), device_index_bytes=index_bytes,
+        gpu_peak_mib=_gpu_peak_mib(dev),
+        device_index_bytes=sum(by_tensor.values()),
+        device_index_bytes_by_tensor=by_tensor, to_device=todev,
         index=dict(n_kmer_padded=didx.n_kmer, n_uni_padded=didx.n_uni,
                    first_level=didx.first_level_bases),
         launches=dict(ec.LAUNCHES), kernels=_kernel_table(samples),
@@ -267,22 +364,42 @@ def _child_sort(p: dict, a) -> dict:
     return {}
 
 
+def _pass_records(path: str) -> int:
+    return sum(line.split("\t")[6] == "PASS"
+               for line in world.vcf_body(path))
+
+
 def _child_sv(p: dict, a) -> dict:
     from .cli.main import parse_args, run_fc_sv
     from .ops import extd2_cuda as ec
+    from .parallel.fanout import regions_per_chromosome, run_sv_fanout
+    from .parallel.mesh import shard_chromosomes
 
+    counts = regions_per_chromosome(p["anchors"], p["sorted"])
+    t = time.perf_counter()
+    run_sv_fanout(p["anchors"], p["sorted"], p["genome"], p["vcf_card"],
+                  a.sv_shards, status_file=p["status"], device=a.device)
+    fanout = dict(wall_s=time.perf_counter() - t,
+                  workers=len(shard_chromosomes(counts, a.sv_shards)),
+                  sv_shards=a.sv_shards,
+                  records=len(world.vcf_body(p["vcf_card"])))
     dev = _reset_gpu_peak(a.device)
     steps = {"device_ready": _rss_now()}
+    sh = inline_shard(p, a)
     args = parse_args(["fc_sv", p["anchors"], p["sorted"], p["genome"],
-                       "-o", p["vcf_card"], "-r", p["status"],
+                       "-o", p["vcf_shard"], "-r", p["status"],
+                       "-S", str(sh.start), "-E", str(sh.stop - 1),
                        "--device", a.device])
     ec.reset_launches()
     with ec.keep_samples() as samples:
         t = time.perf_counter()
         verdicts, dp = run_fc_sv(args)
         wall = time.perf_counter() - t
-    return dict(wall_in_process_s=wall, regions=len(verdicts),
-                n_pass=sum(v.passed for v in verdicts), dp=dp.prof,
+    return dict(regions=sum(counts), n_pass=_pass_records(p["vcf_card"]),
+                fanout=fanout, shard=[sh.start, sh.stop - 1],
+                shard_regions=len(verdicts),
+                shard_n_pass=sum(v.passed for v in verdicts),
+                wall_in_process_s=wall, dp=dp.prof,
                 gpu_peak_mib=_gpu_peak_mib(dev), launches=dict(ec.LAUNCHES),
                 kernels=_kernel_table(samples),
                 rss_steps=dict(steps, end=_rss_now()))
@@ -292,13 +409,15 @@ def _child_sv_inline(p: dict, a) -> dict:
     from .assembly.sv_call import INLINE, ContigDpBatcher, run_sv_calling
     from .cli.main import fc_sv_inputs, parse_args, write_sv_vcf
 
+    sh = inline_shard(p, a)
     args = parse_args(["fc_sv", p["anchors"], p["sorted"], p["genome"],
-                       "-o", p["vcf_inline"], "-r", p["status"]])
+                       "-o", p["vcf_inline"], "-r", p["status"],
+                       "-S", str(sh.start), "-E", str(sh.stop - 1)])
     dp = ContigDpBatcher(INLINE)
     verdicts, records = run_sv_calling(args.bam, *fc_sv_inputs(args), dp=dp)
     write_sv_vcf(args.output, records)
-    return dict(regions=len(verdicts), n_pass=sum(v.passed for v in verdicts),
-                dp=dp.prof)
+    return dict(shard=[sh.start, sh.stop - 1], regions=len(verdicts),
+                n_pass=sum(v.passed for v in verdicts), dp=dp.prof)
 
 
 def _device_busy_share(run) -> dict:
@@ -331,16 +450,16 @@ def _child_parity(p: dict, a) -> dict:
     idx_dir = os.path.join(d, "rdbg")
     if not os.path.isdir(idx_dir):
         world._copy_index(p["index"], idx_dir)
-    tune = os.path.join(idx_dir, "engine_tune.json")
     head = os.path.join(d, "head.fq")
     n_head = world.head_signal(p["signal"], head, N_BAM_PARITY)
 
-    def fc_aln(device, cfg, out):
+    def fc_aln(device, cfg, out, index=idx_dir):
         # every run starts from the default lane budgets
+        tune = os.path.join(index, "engine_tune.json")
         if os.path.exists(tune):
             os.remove(tune)
         return run_fc_aln(parse_args([
-            "fc_aln", idx_dir, head, p["header"], "-o", out, "-r",
+            "fc_aln", index, head, p["header"], "-o", out, "-r",
             p["status"], "-b", str(BATCH), "--device", device]),
             config=EngineConfig(**cfg))
 
@@ -356,6 +475,9 @@ def _child_parity(p: dict, a) -> dict:
                              f"{[len(r) for r in recs]}")
     out = dict(a_reads=n_head, a_records=len(recs[0]),
                a_runs=[f"{dv} {nm}" for dv, nm, _ in runs])
+    if a.first_level != "auto":
+        out["e"] = _parity_e(p, a, d, lambda index, bam: fc_aln(
+            a.device, CONFIGS[0][1], bam, index), bams[1], n_head)
     seqs, oris = world.read_batch(p["signal"], N_HOST_PARITY)
     eng = AlignEngine(world.load_index(idx_dir),
                       ori_chrom_names=world.header_names(p["header"]),
@@ -370,20 +492,63 @@ def _child_parity(p: dict, a) -> dict:
     return out
 
 
+def _parity_e(p: dict, a, d: str, fc_aln, fixed_bam: str,
+              n_head: int) -> dict:
+    """(e): the reads of (a) over an index of the same anchors at the
+    auto first level give the BAM records of the index at a.first_level
+    (the probe's layout changes with the level, its answers must not)."""
+    from .index.builder import build_index
+    from .index.store import save_index
+    from .io.fasta import read_fasta
+
+    auto_dir = os.path.join(d, "rdbg_auto")
+    idx = build_index(list(read_fasta(p["anchors"]).items()),
+                      first_level_bases="auto")
+    save_index(idx, auto_dir)
+    bam = os.path.join(d, "head_auto_level.bam")
+    fc_aln(auto_dir, bam)
+    got, want = world.bam_records(bam), world.bam_records(fixed_bam)
+    if not want or got != want:
+        raise AssertionError(f"parity (e): BAM records differ between first "
+                             f"levels {idx.first_level_bases} and "
+                             f"{a.first_level}: {len(got)} vs {len(want)}")
+    return dict(reads=n_head, records=len(want),
+                levels=[int(a.first_level), idx.first_level_bases])
+
+
+def _f1(truth: list, query: list) -> dict:
+    from .io.vcf_compare import compare_calls
+
+    r = compare_calls(truth, query)
+    return dict(f1=r.f1, recall=r.recall, precision=r.precision,
+                truth=r.n_truth, query=r.n_query, matched=len(r.matches),
+                classes=r.class_counts())
+
+
 def _compare(p: dict) -> dict:
     """(c), (d) and F1 from the VCFs the sv stages wrote."""
-    from .io.vcf_compare import compare_vcfs
+    from .io.vcf_compare import load_calls
 
-    card = world.vcf_body(p["vcf_card"])
-    out = dict(records=len(card),
-               c_inline_identical=card == world.vcf_body(p["vcf_inline"]))
+    fan = world.vcf_body(p["vcf_card"])
+    shard = world.vcf_body(p["vcf_shard"])
+    names = world.header_names(p["header"])
+    with open(p["report"]) as fh:
+        lo, hi = json.load(fh)["stages"]["sv"]["shard"]
+    in_shard = set(names[lo: hi + 1])
+    out = dict(records=len(fan), shard_records=len(shard),
+               shard_chromosomes=sorted(in_shard),
+               c_inline_identical=shard == world.vcf_body(p["vcf_inline"]),
+               c_fanout_identical=shard == [
+                   line for line in fan if line.split("\t")[0] in in_shard])
+    vcfs = dict(card=p["vcf_shard"])
     if os.path.exists(p["vcf_jax"]):
-        out["d_jax_identical"] = card == world.vcf_body(p["vcf_jax"])
+        out["d_jax_identical"] = shard == world.vcf_body(p["vcf_jax"])
+        vcfs["jax"] = p["vcf_jax"]
     for key, pass_only in (("f1_all", False), ("f1_pass", True)):
-        r = compare_vcfs(p["vcf"], p["vcf_card"], pass_only=pass_only)
-        out[key] = dict(f1=r.f1, recall=r.recall, precision=r.precision,
-                        truth=r.n_truth, query=r.n_query,
-                        matched=len(r.matches), classes=r.class_counts())
+        out[key] = _f1(load_calls(p["vcf"], pass_only=pass_only),
+                       load_calls(p["vcf_card"], pass_only=pass_only))
+    truth = [c for c in load_calls(p["vcf"]) if c.chrom in in_shard]
+    out["f1_shard"] = {k: _f1(truth, load_calls(v)) for k, v in vcfs.items()}
     return out
 
 
@@ -396,8 +561,18 @@ def parse_args(argv):
         prog="python -m pansvr_tpu_torch.scale_run", description=__doc__,
         formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--out", required=True, help="output directory")
-    ap.add_argument("--pairs", type=int, default=world.CHROM_PAIRS,
+    ap.add_argument("--world", choices=tuple(WORLDS), default="chrom",
+                    help="the recipe (default chrom)")
+    ap.add_argument("--pairs", type=int,
                     help="read pairs of the world (default 5,000,000)")
+    ap.add_argument("--svs", type=int,
+                    help="SVs of the world (default the recipe's)")
+    ap.add_argument("--first-level",
+                    help="first level of the index, an int or 'auto' "
+                         "(default: chrom auto, genome 14)")
+    ap.add_argument("--sv-shards", type=int, default=os.cpu_count() or 1,
+                    help="fc_sv fan-out worker processes (default: one "
+                         "per CPU)")
     ap.add_argument("--stages", default=",".join(STAGES),
                     help="comma-separated stages to run, in their order")
     ap.add_argument("--device", default="cuda",
@@ -408,6 +583,11 @@ def parse_args(argv):
     bad = set(a.stages.split(",")) - set(STAGES)
     if bad:
         ap.error(f"unknown stages {sorted(bad)}")
+    w = WORLDS[a.world]
+    a.pairs = w["pairs"] if a.pairs is None else a.pairs
+    a.svs = w["recipe"]["n_sv"] if a.svs is None else a.svs
+    fl = w["first_level"] if a.first_level is None else a.first_level
+    a.first_level = fl if fl == "auto" else int(fl)
     return a
 
 
@@ -417,7 +597,7 @@ def main(argv=None) -> int:
     os.makedirs(a.out, exist_ok=True)
     p = paths(a.out)
     if a.child == "gen":
-        g = world.gen_chrom_world(a.out, a.pairs)
+        g = world.gen_chrom_world(a.out, a.pairs, **recipe(a))
         _write_child(a.out, a.child, dict(seconds=g["gen_seconds"],
                                           workers=os.cpu_count()))
         return 0
@@ -434,8 +614,9 @@ def main(argv=None) -> int:
             rep = json.load(fh)
     except (OSError, ValueError):
         rep = {}
-    rep.update(pairs=a.pairs, device=a.device, world=dict(world.CHROM_WORLD),
-               batch=BATCH)
+    rep.update(pairs=a.pairs, device=a.device, world_name=a.world,
+               world=recipe(a), first_level=a.first_level, batch=BATCH,
+               sv_shards=a.sv_shards)
     if a.device.startswith("cuda"):
         rep["card"] = card_line()
     stages = rep.setdefault("stages", {})
@@ -449,6 +630,7 @@ def main(argv=None) -> int:
             print(f"[scale] compare: {json.dumps(rep['compare'])}",
                   flush=True)
             if not (rep["compare"]["c_inline_identical"]
+                    and rep["compare"]["c_fanout_identical"]
                     and rep["compare"].get("d_jax_identical", True)):
                 print("[scale] compare: the VCF records differ", flush=True)
                 return 1
@@ -468,19 +650,32 @@ def main(argv=None) -> int:
         if stage == "signal":
             with open(p["signal"]) as fh:
                 rep["signal_reads"] = sum(1 for _ in fh) // 4
+        if stage == "index" and line["rc"] == 0:
+            idx = world.load_index(p["index"])
+            line.update(first_level=idx.first_level_bases,
+                        n_kmers=idx.n_kmers, n_unitigs=idx.n_unitigs)
         _save(rep, p["report"])
         if line["rc"] != 0:
             print(f"[scale] {stage} failed (rc={line['rc']})", flush=True)
             return 1
         if stage == "aln":
             print(f"[scale] aln: {line['reads']} reads at "
-                  f"{line['reads_per_s']:.1f} reads/s; host fallback "
+                  f"{line['reads_per_s']:.1f} reads/s "
+                  f"({line['stream_reads_per_s']:.1f} after the index "
+                  f"upload, {line['prof']['index_upload']:.1f} s); host "
+                  f"fallback "
                   f"{line['fallback_share']:.4%} of the reads with a hit; "
                   f"launches {line['launches']}", flush=True)
             if line["fallback_share"] > MAX_FALLBACK:
                 print(f"[scale] aln: host fallback over {MAX_FALLBACK:.0%}",
                       flush=True)
                 return 1
+        if stage == "sv":
+            lo, hi = line["shard"]
+            print(f"[scale] sv: {line['n_pass']} PASS of {line['regions']} "
+                  f"regions through {line['fanout']['workers']} fan-out "
+                  f"workers; the JAX fc_sv of (d) runs over -S {lo} -E {hi}",
+                  flush=True)
     print(f"[scale] report: {p['report']}", flush=True)
     return 0
 

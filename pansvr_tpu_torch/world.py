@@ -11,7 +11,12 @@ The chromosome-scale world (build_chrom_world) is the stand-in for a
 deployment: tools/chrom_scale_run.py's recipe (seed 99, 2,000
 DEL/INS/DUP SVs on chr1 60 Mbp + chr2 40 Mbp, 5,000,000 read pairs at
 error rate 0.01, index at the auto first level), about 100% of its
-signal reads on target.
+signal reads on target. The genome world (build_genome_world) runs the
+same steps at a whole-genome call set's size: 40,000 DEL/INS/DUP SVs on
+24 chromosomes of 16 Mbp (384 Mbp; only the anchor reference, sized by
+the SV count, reaches the card), 5,000,000 read pairs (~125 a region)
+at error 0.01, index at the reference's first level, 14
+(KMER_LEN_FIRST_LEVEL): ~47M k-mers.
 
 Two derived worlds drive the engine's adaptive paths:
   build_overflow_world  every read on target (a window of an anchor
@@ -37,6 +42,13 @@ CHROM_WORLD = dict(seed=99, n_sv=2000, types=("DEL", "INS", "DUP"),
                    chrom_lengths={"chr1": 60_000_000, "chr2": 40_000_000},
                    err_rate=0.01)
 CHROM_PAIRS = 5_000_000
+# a whole-genome candidate-SV call set on 24 chromosomes (seed 2024)
+GENOME_WORLD = dict(seed=2024, n_sv=40_000, types=("DEL", "INS", "DUP"),
+                    chrom_lengths={f"chr{i}": 16_000_000
+                                   for i in range(1, 25)},
+                    err_rate=0.01)
+GENOME_PAIRS = 5_000_000
+GENOME_FIRST_LEVEL = 14     # the reference's KMER_LEN_FIRST_LEVEL
 
 
 def build_bench_world(out_dir: str, n_pairs: int = 250_000) -> dict:
@@ -128,13 +140,121 @@ def gen_chrom_world(out_dir: str, n_pairs: int = CHROM_PAIRS,
     return p
 
 
+def gen_genome_world(out_dir: str, n_pairs: int = GENOME_PAIRS,
+                     workers: int | None = None, **recipe) -> dict:
+    """GEN stage of the genome world: gen_chrom_world with GENOME_WORLD
+    (updated by `recipe`) in place of CHROM_WORLD."""
+    return gen_chrom_world(out_dir, n_pairs, workers,
+                           **{**GENOME_WORLD, **recipe})
+
+
+def sim_bam_records_fast(ds):
+    """utils.simulate.sim_bam_records(ds): the same header and records.
+    The copy's map_read scans its chromosome's whole list of alt-to-ref
+    segments for every alt read (~6 ms a pair at 1,667 SVs a
+    chromosome); here the segments that can overlap the read are found
+    by bisection on their ends and scanned in the same order with the
+    same rule (the first of the longest overlaps), which picks the same
+    segment, since a segment outside [p, p + L) overlaps by <= 0."""
+    import bisect
+
+    from .io.bam import (FMREVERSE, FMUNMAP, FPAIRED, FPROPER_PAIR,
+                         FREAD1, FREAD2, FREVERSE, FUNMAP, BamHeader,
+                         BamRecord)
+    from .utils import dna
+    from .utils.simulate import _alt_to_ref_segments
+
+    tids = {c: i for i, c in enumerate(ds.genome)}
+    header = BamHeader.from_sam_text(
+        "@HD\tVN:1.6\tSO:coordinate\n" + "".join(
+            f"@SQ\tSN:{c}\tLN:{len(s)}\n" for c, s in ds.genome.items()))
+    segs = _alt_to_ref_segments(ds.genome, ds.svs)
+    ends = {c: [sg[1] for sg in s] for c, s in segs.items()}
+
+    def map_read(chrom, p, L, from_alt):
+        if not from_alt:
+            return p, [("M", L)], L, False
+        best = None
+        s = segs[chrom]
+        i = bisect.bisect_right(ends[chrom], p)
+        while i < len(s) and s[i][0] < p + L:
+            seg = s[i]
+            i += 1
+            a0, a1, r0 = seg[0], seg[1], seg[2]
+            rev = len(seg) > 3 and seg[3]
+            lo = max(p, a0)
+            hi = min(p + L, a1)
+            if hi - lo > (best[1] - best[0] if best else 0):
+                best = (lo, hi, a0, a1, r0, rev)
+        if best is None or best[1] - best[0] < 30:
+            return None
+        lo, hi, a0, a1, r0, rev = best
+        if not rev:
+            cig = [("S", lo - p)] if lo > p else []
+            cig.append(("M", hi - lo))
+            if p + L > hi:
+                cig.append(("S", p + L - hi))
+            return r0 + (lo - a0), cig, hi - lo, False
+        cig = [("S", p + L - hi)] if p + L > hi else []
+        cig.append(("M", hi - lo))
+        if lo > p:
+            cig.append(("S", lo - p))
+        return r0 + (a1 - hi), cig, hi - lo, True
+
+    records = []
+    for rd in ds.reads:
+        mates = ((rd.pos0_1, rd.seq1, rd.qual1, False, rd.n_err1),
+                 (rd.pos0_2, rd.seq2, rd.qual2, True, rd.n_err2))
+        maps = [map_read(rd.chrom, p, len(seq), rd.from_alt)
+                for p, seq, _, _, _ in mates]
+        tid = tids[rd.chrom]
+        recs = []
+        for k, (p, seq, qual, rev, n_err) in enumerate(mates):
+            m, mm = maps[k], maps[1 - k]
+            strand_rev = rev ^ (m[3] if m else False)
+            mate_rev = (k == 0) ^ (mm[3] if mm else False)
+            flag = FPAIRED | (FREAD1 if k == 0 else FREAD2)
+            if strand_rev:
+                flag |= FREVERSE
+            if mm is None:
+                flag |= FMUNMAP
+            elif mate_rev:
+                flag |= FMREVERSE
+            r = BamRecord(
+                name=rd.name, flag=flag, tid=tid,
+                seq=seq if not strand_rev else dna.revcomp(seq),
+                qual=qual if not strand_rev else qual[::-1], mapq=60,
+                tags=[("NM", "i", n_err)])
+            if m is None:
+                r.flag |= FUNMAP
+                r.pos = mm[0] if mm else 0
+                r.mapq = 0
+                r.cigar = []
+            else:
+                r.pos, r.cigar = m[0], m[1]
+            r.mtid = tid
+            r.mpos = mm[0] if mm else (m[0] if m else 0)
+            recs.append(r)
+        if maps[0] and maps[1]:
+            lo = min(recs[0].pos, recs[1].pos)
+            isz = max(recs[0].end_pos, recs[1].end_pos) - lo
+            recs[0].isize = isz if recs[0].pos <= recs[1].pos else -isz
+            recs[1].isize = -recs[0].isize
+            if isz < 1000:
+                recs[0].flag |= FPROPER_PAIR
+                recs[1].flag |= FPROPER_PAIR
+        records.extend(recs)
+    records.sort(key=lambda r: (r.tid, r.pos))
+    return header, records
+
+
 def _sim_bam_part(genome, svs, reads, path) -> int:
     """Worker of write_sim_bam_parallel: the encoded records of `reads`
     in sim_bam_records' order, written to path; returns their count."""
     from .io.bam import _encode_record
-    from .utils.simulate import SimDataset, sim_bam_records
+    from .utils.simulate import SimDataset
 
-    _, records = sim_bam_records(SimDataset(genome, svs, {}, reads))
+    _, records = sim_bam_records_fast(SimDataset(genome, svs, {}, reads))
     with open(path, "wb") as fh:
         for r in records:
             fh.write(_encode_record(r))
@@ -206,15 +326,16 @@ def anchor_chrom_world(p: dict) -> None:
         run_anchor_ref(p["vcf"], Faidx(p["genome"]), fh)
 
 
-def index_chrom_world(p: dict):
-    """INDEX stage: the index store of anchors.fa at the auto first level
-    (`fc_index anchors.fa rdbg`); returns the host index."""
+def index_chrom_world(p: dict, first_level="auto"):
+    """INDEX stage: the index store of anchors.fa at `first_level`
+    (`fc_index anchors.fa rdbg --first-level FL`); returns the host
+    index."""
     from .index.builder import build_index
     from .index.store import save_index
     from .io.fasta import read_fasta
 
     idx = build_index(list(read_fasta(p["anchors"]).items()),
-                      first_level_bases="auto")
+                      first_level_bases=first_level)
     save_index(idx, p["index"])
     return idx
 
@@ -234,20 +355,31 @@ def signal_chrom_world(p: dict) -> None:
 
 
 def build_chrom_world(out_dir: str, n_pairs: int = CHROM_PAIRS,
-                      workers: int | None = None, **recipe) -> dict:
+                      workers: int | None = None, first_level="auto",
+                      **recipe) -> dict:
     """The chromosome-scale world in out_dir, stage after stage in this
     process (scale_run runs each stage as a process of its own): GEN,
-    ANCHOR, INDEX, SIGNAL. `recipe` overrides CHROM_WORLD's fields (a
-    smaller genome or fewer SVs for tests); n_pairs alone cuts the
-    world's reads. Returns chrom_paths(out_dir) with the index's k-mer
-    and unitig counts and its first level."""
+    ANCHOR, INDEX (at `first_level`), SIGNAL. `recipe` overrides
+    CHROM_WORLD's fields (a smaller genome or fewer SVs for tests);
+    n_pairs alone cuts the world's reads. Returns chrom_paths(out_dir)
+    with the index's k-mer and unitig counts and its first level."""
     p = gen_chrom_world(out_dir, n_pairs, workers, **recipe)
     del p["gen_seconds"]
     anchor_chrom_world(p)
-    idx = index_chrom_world(p)
+    idx = index_chrom_world(p, first_level)
     signal_chrom_world(p)
     return dict(p, n_kmers=idx.n_kmers, n_unitigs=idx.n_unitigs,
                 first_level=idx.first_level_bases)
+
+
+def build_genome_world(out_dir: str, n_pairs: int = GENOME_PAIRS,
+                       workers: int | None = None,
+                       first_level=GENOME_FIRST_LEVEL, **recipe) -> dict:
+    """The genome world in out_dir: build_chrom_world with GENOME_WORLD
+    (updated by `recipe`) and its index at `first_level` (the
+    reference's 14 by default)."""
+    return build_chrom_world(out_dir, n_pairs, workers, first_level,
+                             **{**GENOME_WORLD, **recipe})
 
 
 def write_signal(template_fq: str, dst: str, seqs: list[str]) -> int:

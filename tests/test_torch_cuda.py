@@ -314,17 +314,21 @@ def test_onchip_self_check_on_card(cuda_device):
 
 @pytest.mark.cuda
 def test_sv_fanout_workers_share_the_card(cuda_device, tmp_path):
-    """run --sv-shards: two fc_sv worker processes run their contig DP on
-    one card and merge to the VCF of one fc_sv process."""
+    """run --sv-shards: two fc_sv worker processes, one a chromosome, run
+    their contig DP on one card and merge to the VCF of one fc_sv
+    process."""
     from pansvr_tpu_torch.cli.main import parse_args, run_fc_sv
     from pansvr_tpu_torch.io.fasta import write_fasta
     from pansvr_tpu_torch.io.vcf import VCFWriter, minimal_header
-    from pansvr_tpu_torch.parallel.fanout import run_sv_fanout
+    from pansvr_tpu_torch.parallel.fanout import (
+        regions_per_chromosome, run_sv_fanout)
+    from pansvr_tpu_torch.parallel.mesh import shard_chromosomes
     from pansvr_tpu_torch.pipeline import PipelineConfig, run_pipeline
     from pansvr_tpu_torch.utils.simulate import make_dataset, write_sim_bam
 
-    ds = make_dataset(seed=77, n_sv=3, n_pairs=400, types=("DEL", "INS"),
-                      chrom_lengths={"chr1": 100_000}, err_rate=0.0)
+    ds = make_dataset(seed=77, n_sv=4, n_pairs=400, types=("DEL", "INS"),
+                      chrom_lengths={"chr1": 100_000, "chr2": 100_000},
+                      err_rate=0.0)
     genome, vcf, bam = (str(tmp_path / f) for f in ("g.fa", "s.vcf", "s.bam"))
     write_fasta(genome, ds.genome.items(), width=60)
     w = VCFWriter(vcf, minimal_header([(c, len(s)) for c, s in ds.genome.items()]))
@@ -339,6 +343,8 @@ def test_sv_fanout_workers_share_the_card(cuda_device, tmp_path):
     single = str(tmp_path / "single.vcf")
     run_fc_sv(parse_args(["fc_sv", *args, "-o", single, "-r",
                           str(work / "status.txt"), "--device", "cpu"]))
+    assert shard_chromosomes(regions_per_chromosome(
+        args[0], args[1]), 2) == [range(0, 1), range(1, 2)]
     merged = run_sv_fanout(*args, str(tmp_path / "fan.vcf"), n_shards=2,
                            status_file=str(work / "status.txt"), device="cuda")
     assert "\tPASS\t" in open(single).read()
