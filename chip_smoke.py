@@ -32,27 +32,38 @@ Phases, each timed; any failure raises (exit code != 0, no result line):
              signal reads; genome and anchor FASTA for fc_sv) in a temporary
              directory
   5 fc_aln   the port's CLI entry point on the whole world at -b 8192 in
-             two engine configurations: stream depth 3 with device collect
-             (the defaults) and depth 1 with host collect; one warm-up pass
-             each, then three timed passes each, taken in turns (each
-             printed, the median is the result; phase timers, peak GPU
-             memory, kernel launches per pass by DP shape); the two give
-             identical BAM records
-  6 syncs    one 8,192-read batch per configuration under
+             three engine configurations: stream depth 3 with device
+             collect (the defaults: each batch's front + chain + collect
+             and each DP chunk replayed as CUDA graphs), depth 1 with host
+             collect, and the first enqueued op by op (fuse_chain=False);
+             one warm-up pass each, then three timed passes each, taken in
+             turns (each printed, the median is the result; the split host
+             timers, CUDA graph captures with their seconds and replays,
+             peak GPU memory allocated and reserved, kernel launches per
+             pass by DP shape); the three give identical BAM records, and
+             the first and the op-by-op one the same launch table
+  6 syncs    one 8,192-read batch per configuration, after three warm-up
+             batches (every graph captured), under
              torch.cuda.set_sync_debug_mode("warn"): the stream syncs
-             PyTorch reports, beside the engine's own event waits
+             PyTorch reports, beside the engine's own event waits and the
+             batch's graph replays and captures; then a depth-3 pass over
+             the first N_PROFILED reads with and without graphs, each with
+             torch.profiler started after the engine build: the card's
+             busy time and idle share, device kernels and CUDA runtime
+             calls a batch
   7 parity   first 16,384 reads: --device cpu (plain kernels) and cuda in
-             both configurations give identical BAM records; first 1,024
-             reads: the card engine's alignments equal the NumPy host
+             all three configurations give identical BAM records; first
+             1,024 reads: the card engine's alignments equal the NumPy host
              aligner's, field by field
   8 overflow every read on target (world.build_overflow_world, 32,768
              reads): the first batch overflows the default lane pool, the
              engine widens and re-dispatches; final host fallback <= 5%
-             of the reads with a hit; cpu and cuda BAM records identical
-             on the first 16,384 reads
+             of the reads with a hit; cpu and cuda (with and without CUDA
+             graphs) BAM records identical on the first 16,384 reads
   9 uniform  reads uniform over a genome (world.build_uniform_world,
              24,576 reads at -b 2048): the compaction budget engages and
-             the BAM records equal an uncompacted run's
+             the BAM records equal an uncompacted run's and an op-by-op
+             run's
  10 onchip   ops.onchip_check.run_onchip_parity on the card: K1 + K2 vs the
              scalar oracle, realigner and contig profiles at 176x256/W256,
              and the sharded DP over the mesh [cuda:0, cuda:0] vs one device
@@ -82,10 +93,11 @@ Phases, each timed; any failure raises (exit code != 0, no result line):
              error 0.01, auto first level) with its pairs cut to
              N_CHROM_PAIRS, built by scale_run's gen, anchor, index and
              signal stages (a process each); fc_aln on the card, host
-             fallback <= 5% of the reads with a hit; the first 16,384
-             reads (or all) give identical BAM records on the CPU and the
-             card in both configurations; sort + BAI; fc_sv on the card,
-             its VCF records equal the inline native DP's
+             fallback <= 5% of the reads with a hit, its split host
+             timers and graph counters; the first 16,384 reads (or all)
+             give identical BAM records on the CPU and the card in all
+             three configurations; sort + BAI; fc_sv on the card, its VCF
+             records equal the inline native DP's
  15 genome   the genome world (world.build_genome_world's recipe: seed
              2024, DEL/INS/DUP SVs on 24 chromosomes of 16 Mbp, error
              0.01, index at the reference's first level 14) cut to
@@ -93,9 +105,11 @@ Phases, each timed; any failure raises (exit code != 0, no result line):
              --world genome's gen, anchor, index and signal stages (a
              process each): the full 4^14 bucket table and ~4.7M k-mers;
              fc_aln on the card (reads/s, device index bytes, host
-             fallback <= 5% of the reads with a hit); (a) the first 8,192
-             reads give identical BAM records on the CPU and the card in
-             both configurations; (e) the same reads on the card over an
+             fallback <= 5% of the reads with a hit, split host timers and
+             graph counters, then phase 6's profiled passes on its reads);
+             (a) the first 8,192 reads give identical BAM records on the
+             CPU and the card in all three configurations; (e) the same
+             reads on the card over an
              index of the same anchors at the auto first level give them
              too; sort + BAI; fc_sv through the region fan-out with two
              workers on the card, its VCF records equal one fc_sv's on
@@ -139,7 +153,20 @@ from pansvr_tpu_torch.ops.kernel_bounds import (  # noqa: E402
 # -b of fc_aln, the parity read counts, the fallback limit and the timed
 # engine configurations: (name, EngineConfig fields)
 from pansvr_tpu_torch.scale_run import (  # noqa: E402
-    BATCH, CONFIGS, MAX_FALLBACK, N_BAM_PARITY, N_HOST_PARITY)
+    BATCH, CONFIGS, MAX_FALLBACK, N_BAM_PARITY, N_HOST_PARITY,
+    profiled_fc_aln)
+
+# the first configuration enqueued op by op (fuse_chain=False) instead of
+# replaying its per-batch CUDA graphs: timed in the same turns as CONFIGS
+# (phase 5) and held to the same BAM records wherever they are compared
+OPS_CONFIG = (CONFIGS[0][0] + "_ops", dict(CONFIGS[0][1], fuse_chain=False))
+BENCH_CONFIGS = CONFIGS + (OPS_CONFIG,)
+# reads of the profiled passes (profiler started after the engine build)
+N_PROFILED = 65_536
+# the engine's host timers and graph counters every fc_aln pass reports
+SPLIT = ("prep_wait", "front_enqueue", "host_submit", "front_run",
+         "dp_layout", "dp_enqueue", "dp_dispatch", "sync_chain", "sync_dp",
+         "host_collect", "host_replay", "prep_s", "stream_s")
 
 # (Qmax, Tmax, W, profile, problems, oracle problems): the engine's DP
 # classes for the 160 and 256 read classes under the realigner's profile,
@@ -525,6 +552,17 @@ def drop_tuning(w):
 LAUNCH_SHAPES: dict = {}
 
 
+def split_line(p) -> str:
+    """The engine's split host timers (s) and graph counters of a pass."""
+    return (", ".join(f"{k} {p.get(k, 0.0):.3f}" for k in SPLIT)
+            + f"; CUDA graphs: {int(p.get('n_graph_capture', 0))} captures "
+            f"in {p.get('graph_capture_s', 0.0):.3f} s (warm-ups "
+            f"{p.get('graph_warmup_s', 0.0):.3f} s), "
+            f"{int(p.get('n_graph_replay', 0))} replays in "
+            f"{p.get('graph_replay_s', 0.0):.3f} s, "
+            f"{int(p.get('n_graph_evict', 0))} evicted")
+
+
 def counted(launches, name, fn):
     """Run fn with the kernel launch counters set to 0 just before and
     read just after; the counts add up under launches[name] (and by DP
@@ -558,16 +596,20 @@ def bench_passes(w, tmp, dev, launches, n_reads, n_timed=N_TIMED):
     import torch
 
     cuda = dev.type == "cuda"
-    for name, cfg in CONFIGS:
+    for name, cfg in BENCH_CONFIGS:
         fc_aln(w, w["signal"], os.path.join(tmp, f"warm_{name}.bam"),
                dev.type, **cfg)
-    res = {name: dict(walls=[], peak_mib=0.0) for name, _ in CONFIGS}
+    res = {name: dict(walls=[], peak_mib=0.0, reserved_mib=0.0)
+           for name, _ in BENCH_CONFIGS}
     for _ in range(n_timed):
-        for name, cfg in CONFIGS:
+        for name, cfg in BENCH_CONFIGS:
             r = res[name]
             out = os.path.join(tmp, f"{name}.bam")
             if cuda:
+                # the pass's own peaks: earlier engines' graph pools and
+                # cached blocks released first
                 torch.cuda.synchronize()
+                torch.cuda.empty_cache()
                 torch.cuda.reset_peak_memory_stats()
             t = time.perf_counter()
             eng = counted(launches, f"bench_{name}",
@@ -576,6 +618,8 @@ def bench_passes(w, tmp, dev, launches, n_reads, n_timed=N_TIMED):
                 torch.cuda.synchronize()
                 r["peak_mib"] = max(r["peak_mib"],
                                     torch.cuda.max_memory_allocated() / 2**20)
+                r["reserved_mib"] = max(
+                    r["reserved_mib"], torch.cuda.max_memory_reserved() / 2**20)
             r["walls"].append(time.perf_counter() - t)
             r["prof"] = {k: round(v, 4) for k, v in sorted(eng.prof.items())}
             r["bam"] = out
@@ -586,7 +630,10 @@ def bench_passes(w, tmp, dev, launches, n_reads, n_timed=N_TIMED):
         log(f"fc_aln {name}: passes " + ", ".join(
             f"{x:.3f} s = {n_pr / x:.1f} reads/s" for x in r["walls"])
             + f"; median {r['reads_per_s']:.1f} reads/s; peak GPU memory "
-            f"{r['peak_mib']:.1f} MiB")
+            f"{r['peak_mib']:.1f} MiB allocated, {r['reserved_mib']:.1f} MiB "
+            "reserved")
+        log(f"split host timers of the last {name} pass (s): "
+            + split_line(r["prof"]))
         log(f"engine phases of the last {name} pass (s) and counts: "
             f"{r['prof']}")
         per_pass = {f"{k} Tmax={t} W={W} B={b}": n / n_timed
@@ -595,10 +642,56 @@ def bench_passes(w, tmp, dev, launches, n_reads, n_timed=N_TIMED):
         log(f"kernel launches per {name} pass by DP class and problem "
             f"count (target width Tmax: 64 = 48x64, 128 = 96x128, 256/352 = "
             f"the read class's 176x256 / 272x352): {per_pass}")
-    (a, ra), (b, rb) = res.items()
-    n = same_bam(ra["bam"], rb["bam"], f"fc_aln {a} vs {b}")
-    log(f"{a} and {b}: {n} BAM records identical")
+    names = list(res)
+    for b in names[1:]:
+        n = same_bam(res[names[0]]["bam"], res[b]["bam"],
+                     f"fc_aln {names[0]} vs {b}")
+    log(f"{', '.join(names)}: {n} BAM records identical")
+    graphs, ops = f"bench_{CONFIGS[0][0]}", f"bench_{OPS_CONFIG[0]}"
+    if LAUNCH_SHAPES[graphs] != LAUNCH_SHAPES[ops]:
+        raise AssertionError(
+            f"kernel launches differ with and without CUDA graphs: "
+            f"{LAUNCH_SHAPES[graphs]} vs {LAUNCH_SHAPES[ops]}")
+    log(f"kernel launch table identical with CUDA graphs ({graphs}) and op "
+        f"by op ({ops}): {launches[graphs]} over {n_timed} passes each; "
+        f"reads/s graphs / op by op "
+        f"{res[CONFIGS[0][0]]['reads_per_s'] / res[OPS_CONFIG[0]]['reads_per_s']:.4f}")
     return res
+
+
+def profiled_phase(w, tmp, dev, what, n_reads=N_PROFILED):
+    """One depth-3 pass over the first n_reads reads of a world per
+    CUDA-graph mode (graphs, then op by op), each with torch.profiler
+    started after the engine is built: the card's busy time and idle
+    share over the stream, its device kernels and the host's CUDA runtime
+    calls a batch. Returns {config: summary}."""
+    from pansvr_tpu_torch import world
+    from pansvr_tpu_torch.align.engine import EngineConfig
+
+    head = os.path.join(tmp, f"prof_{what}.fq")
+    n = world.head_signal(w["signal"], head, n_reads)
+    out = {}
+    for name, cfg in (CONFIGS[0], OPS_CONFIG):
+        drop_tuning(w)
+        r = profiled_fc_aln([
+            "fc_aln", w["index"], head, w["header"], "-o",
+            os.path.join(tmp, f"prof_{what}_{name}.bam"), "-r", w["status"],
+            "-b", str(BATCH), "--device", dev.type], EngineConfig(**cfg))
+        b = max(r["batches"], 1)
+        calls = r["runtime_calls"]
+        launch_calls = sum(v[0] for k, v in calls.items()
+                           if "Launch" in k or "Memcpy" in k or "Memset" in k)
+        log(f"profiled pass ({what}, {name}, {n} reads, {r['batches']} "
+            f"batches, profiler started after the engine build): stream "
+            f"{r['wall_s']:.3f} s, card busy {r['busy_s']:.3f} s, idle "
+            f"share {r['idle_share']:.1%}; {r['kernels']} device kernels = "
+            f"{r['kernels'] / b:.0f} a batch; {launch_calls / b:.0f} CUDA "
+            f"launch/copy calls a batch; {r['n_graph_capture']} captures, "
+            f"{r['n_graph_replay']} replays; runtime calls [count, ms] "
+            f"{calls}; host operations by own CPU time [name, count, ms] "
+            f"{r['top_host']}")
+        out[name] = dict(r, reads=n)
+    return out
 
 
 def sync_counts(w, dev, n=BATCH):
@@ -615,8 +708,10 @@ def sync_counts(w, dev, n=BATCH):
     for name, cfg in CONFIGS:
         eng = AlignEngine(idx, ori_chrom_names=names, device=dev,
                           config=EngineConfig(**cfg))
-        eng.align_batch(seqs[:n], oris[:n])
+        for _ in range(3):     # K settles and every shape set is captured
+            eng.align_batch(seqs[:n], oris[:n])
         waits0 = eng.prof["n_event_waits"]
+        cap0, rep0 = eng.prof["n_graph_capture"], eng.prof["n_graph_replay"]
         with warnings.catch_warnings(record=True) as rec:
             warnings.simplefilter("always")
             if dev.type == "cuda":
@@ -630,10 +725,12 @@ def sync_counts(w, dev, n=BATCH):
         msgs = [str(r.message) for r in rec
                 if "called a synchronizing" in str(r.message)]
         waits = int(eng.prof["n_event_waits"] - waits0)
+        caps = int(eng.prof["n_graph_capture"] - cap0)
+        reps = int(eng.prof["n_graph_replay"] - rep0)
         log(f"syncs {name}: {len(msgs)} synchronizing operations reported "
-            f"by torch.cuda.set_sync_debug_mode in one {n}-read batch, "
-            f"{waits} event waits"
-            + (f"; first: {msgs[0][:160]}" if msgs else ""))
+            f"by torch.cuda.set_sync_debug_mode in one {n}-read batch "
+            f"({reps} CUDA graph replays, {caps} captures), {waits} event "
+            "waits" + (f"; first: {msgs[0][:160]}" if msgs else ""))
 
 
 def overflow_phase(w, tmp, dev, launches, n_reads=N_OVERFLOW, batch=BATCH,
@@ -670,16 +767,19 @@ def overflow_phase(w, tmp, dev, launches, n_reads=N_OVERFLOW, batch=BATCH,
     head = os.path.join(tmp, "ovf_head.fq")
     world.head_signal(ov["signal"], head, n_head)
     bams = []
-    for device in ("cpu", dev.type):
+    for device, cfg in (("cpu", {}), (dev.type, {}),
+                        (dev.type, dict(fuse_chain=False))):
         drop_tuning(ov)
-        bams.append(os.path.join(tmp, f"ovf_head_{device}.bam"))
-        e = fc_aln(ov, head, bams[-1], device, batch)
+        bams.append(os.path.join(tmp, f"ovf_head_{device}_{len(bams)}.bam"))
+        e = fc_aln(ov, head, bams[-1], device, batch, **cfg)
         if not e.prof["n_retry"]:
             raise AssertionError(f"overflow head on {device}: no retry")
-    row["bam_records"] = same_bam(*bams, f"overflow world, first {n_head} "
-                                         "reads, cpu vs cuda")
+    for b in bams[1:]:
+        row["bam_records"] = same_bam(bams[0], b, f"overflow world, first "
+                                      f"{n_head} reads, cpu vs {b}")
     log(f"overflow world, first {n_head} reads: {row['bam_records']} BAM "
-        "records identical between cpu and cuda (both widened)")
+        "records identical between cpu and cuda with and without CUDA "
+        "graphs (all widened); the full pass: " + split_line(p))
 
 
 def uniform_phase(w, tmp, dev, launches, n_pairs=N_UNIFORM_PAIRS,
@@ -696,6 +796,9 @@ def uniform_phase(w, tmp, dev, launches, n_pairs=N_UNIFORM_PAIRS,
         uw, uw["signal"], on, dev.type, batch))
     drop_tuning(uw)
     fc_aln(uw, uw["signal"], off, dev.type, batch, compact_div=1)
+    ops = os.path.join(tmp, "uni_ops.bam")
+    drop_tuning(uw)
+    fc_aln(uw, uw["signal"], ops, dev.type, batch, fuse_chain=False)
     row = dict(reads=2 * n_pairs, batches=int(eng.prof["n_batches"]),
                compacted_batches=int(eng.prof["n_compacted"]),
                comp_cap=eng._comp_cap,
@@ -703,11 +806,12 @@ def uniform_phase(w, tmp, dev, launches, n_pairs=N_UNIFORM_PAIRS,
     if not (row["compacted_batches"] and row["comp_cap"]):
         raise AssertionError(f"uniform world: compaction never engaged {row}")
     row["bam_records"] = same_bam(on, off, "uniform world, compacted vs not")
+    same_bam(on, ops, "uniform world, CUDA graphs vs op by op")
     log(f"uniform world: {row['reads']} reads at -b {batch}, "
         f"{row['hit_reads']} with a hit; {row['compacted_batches']} of "
         f"{row['batches']} batches compacted (budget {row['comp_cap']} rows "
         f"of {2 * batch}); {row['bam_records']} BAM records identical to the "
-        "uncompacted run")
+        "uncompacted run and to the op-by-op run; " + split_line(eng.prof))
 
 
 def one_card_mesh(dev):
@@ -1023,6 +1127,7 @@ def chrom_phase(tmp, dev, launches):
     aln = os.path.join(d, "aln.bam")
     if cuda:
         torch.cuda.synchronize()
+        torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
     t = time.perf_counter()
     eng = counted(launches, "chrom", lambda: fc_aln(w, w["signal"], aln,
@@ -1036,15 +1141,20 @@ def chrom_phase(tmp, dev, launches):
                hit_reads=hit, fallback=int(p["n_fallback"]),
                widenings=int(p["n_widen"]), retries=int(p["n_retry"]),
                gpu_mib=torch.cuda.max_memory_allocated() / 2**20 if cuda
-               else 0.0)
+               else 0.0,
+               gpu_reserved_mib=torch.cuda.max_memory_reserved() / 2**20
+               if cuda else 0.0)
     log(f"chromosome world fc_aln on the card: {int(p['n_reads'])} reads in "
         f"{out['aln_s']:.3f} s = {out['aln_reads_per_s']:.1f} reads/s; "
         f"{hit} with a k-mer hit, host fallback {out['fallback']} "
         f"({out['fallback'] / hit:.3%}); {out['widenings']} widenings, "
         f"{out['retries']} batch retries, budgets now nf_mult "
         f"{eng.cfg.nf_mult} mem_slots {eng.cfg.mem_slots}; peak GPU memory "
-        f"{out['gpu_mib']:.1f} MiB; launches by (kernel, Tmax, W, problems) "
+        f"{out['gpu_mib']:.1f} MiB ({out['gpu_reserved_mib']:.1f} MiB "
+        f"reserved); launches by (kernel, Tmax, W, problems) "
         f"{LAUNCH_SHAPES['chrom']}")
+    out["prof"] = {k: round(v, 4) for k, v in sorted(p.items())}
+    log("chromosome world fc_aln split host timers (s): " + split_line(p))
     if out["fallback"] > MAX_FALLBACK * hit:
         raise AssertionError(f"chromosome world: host fallback "
                              f"{out['fallback']} > {MAX_FALLBACK:.0%} of {hit}")
@@ -1053,7 +1163,7 @@ def chrom_phase(tmp, dev, launches):
     n_head = world.head_signal(w["signal"], head, N_BAM_PARITY)
     bams = []
     for device, name, cfg in [("cpu", "default", {})] + [
-            (dev.type, name, cfg) for name, cfg in CONFIGS]:
+            (dev.type, name, cfg) for name, cfg in BENCH_CONFIGS]:
         drop_tuning(w)
         bams.append(os.path.join(d, f"head_{device}_{name}.bam"))
         fc_aln(w, head, bams[-1], device, **cfg)
@@ -1062,7 +1172,7 @@ def chrom_phase(tmp, dev, launches):
                                          f"first {n_head} reads, cpu vs {b}")
     log(f"chromosome world, first {n_head} reads: {out['parity_records']} "
         "BAM records identical between the plain CPU path and the card in "
-        "both configurations")
+        f"{', '.join(n for n, _ in BENCH_CONFIGS)}")
 
     srt = os.path.join(d, "aln.sorted.bam")
     sort_bam(aln, srt)
@@ -1143,6 +1253,7 @@ def genome_phase(tmp, dev, launches):
     aln = os.path.join(d, "aln.bam")
     if cuda:
         torch.cuda.synchronize()
+        torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
     t = time.perf_counter()
     eng = counted(launches, "genome", lambda: fc_aln(w, w["signal"], aln,
@@ -1160,7 +1271,9 @@ def genome_phase(tmp, dev, launches):
                widenings=int(p["n_widen"]),
                device_index_bytes=sum(by_tensor.values()),
                gpu_mib=torch.cuda.max_memory_allocated() / 2**20 if cuda
-               else 0.0)
+               else 0.0,
+               gpu_reserved_mib=torch.cuda.max_memory_reserved() / 2**20
+               if cuda else 0.0)
     log(f"genome world fc_aln on the card: {int(p['n_reads'])} reads in "
         f"{out['aln_s']:.3f} s = {out['aln_reads_per_s']:.1f} reads/s "
         f"({out['stream_reads_per_s']:.1f} after the index upload's "
@@ -1168,8 +1281,13 @@ def genome_phase(tmp, dev, launches):
         f"fallback {out['fallback']} ({out['fallback'] / hit:.3%}); "
         f"{out['widenings']} widenings; device index "
         f"{out['device_index_bytes']} bytes ({by_tensor}); peak GPU memory "
-        f"{out['gpu_mib']:.1f} MiB; launches by (kernel, Tmax, W, problems) "
+        f"{out['gpu_mib']:.1f} MiB ({out['gpu_reserved_mib']:.1f} MiB "
+        f"reserved); launches by (kernel, Tmax, W, problems) "
         f"{LAUNCH_SHAPES['genome']}")
+    out["prof"] = {k: round(v, 4) for k, v in sorted(p.items())}
+    log("genome world fc_aln split host timers (s): " + split_line(p))
+    if cuda:
+        out["profiled"] = profiled_phase(w, d, dev, "genome")
     if out["fallback"] > MAX_FALLBACK * hit:
         raise AssertionError(f"genome world: host fallback {out['fallback']}"
                              f" > {MAX_FALLBACK:.0%} of {hit}")
@@ -1178,7 +1296,7 @@ def genome_phase(tmp, dev, launches):
     n_head = world.head_signal(w["signal"], head, N_GENOME_PARITY)
     bams = []
     for device, name, cfg in [("cpu", "default", {})] + [
-            (dev.type, name, cfg) for name, cfg in CONFIGS]:
+            (dev.type, name, cfg) for name, cfg in BENCH_CONFIGS]:
         drop_tuning(w)
         bams.append(os.path.join(d, f"head_{device}_{name}.bam"))
         fc_aln(w, head, bams[-1], device, **cfg)
@@ -1196,8 +1314,9 @@ def genome_phase(tmp, dev, launches):
                                 f"{aidx.first_level_bases}")
     out["e_levels"] = [14, aidx.first_level_bases]
     log(f"genome world, first {n_head} reads: (a) {out['a_records']} BAM "
-        f"records identical between the plain CPU path and the card in both "
-        f"configurations; (e) {out['e_records']} identical on the card at "
+        f"records identical between the plain CPU path and the card in "
+        f"{', '.join(n for n, _ in BENCH_CONFIGS)}; (e) {out['e_records']} "
+        "identical on the card at "
         f"first levels 14 and {aidx.first_level_bases}")
 
     srt = os.path.join(d, "aln.sorted.bam")
@@ -1284,18 +1403,23 @@ def main():
         secs["syncs"] = time.perf_counter() - t
 
         t = time.perf_counter()
+        profiled_phase(w, tmp, dev, "bench")
+        secs["profiled"] = time.perf_counter() - t
+
+        t = time.perf_counter()
         fq16 = os.path.join(tmp, "head.fq")
         world.head_signal(w["signal"], fq16, N_BAM_PARITY)
         cpu_bam = os.path.join(tmp, "head_cpu.bam")
         fc_aln(w, fq16, cpu_bam, "cpu")
-        for name, cfg in CONFIGS:
+        for name, cfg in BENCH_CONFIGS:
             gpu_bam = os.path.join(tmp, f"head_{name}.bam")
             fc_aln(w, fq16, gpu_bam, "cuda", **cfg)
             n_rec = same_bam(cpu_bam, gpu_bam, f"first {N_BAM_PARITY} reads, "
                              f"--device cpu vs cuda {name}")
         secs["parity_bam"] = time.perf_counter() - t
         log(f"first {N_BAM_PARITY} reads: {n_rec} BAM records identical "
-            f"between the plain CPU path and the card in both configurations "
+            f"between the plain CPU path and the card in "
+            f"{', '.join(n for n, _ in BENCH_CONFIGS)} "
             f"({secs['parity_bam']:.1f} s)")
 
         t = time.perf_counter()

@@ -9,8 +9,11 @@ batch of reads:
              (ops.seeding.seed_reads_flat, with active-row compaction) +
              merge/expand, SDP chaining at the speculative chain width K
              (ops.chain), then either the chain extraction or the device
-             collect (ops.collect.select_and_paths); the results are
-             copied into pinned host tensors behind one CUDA event;
+             collect (ops.collect.select_and_paths): programs.
+             front_program, replayed as one CUDA graph per static shape
+             set (cfg.fuse_chain on a card) or enqueued op by op; the
+             results are copied into pinned host tensors behind one CUDA
+             event;
   3. host:   _finish_front waits for that event, adapts K (re-chains at
              full width on a miss), widens the lane budgets and
              re-dispatches the batch on mass overflow, and takes the
@@ -19,7 +22,8 @@ batch of reads:
              from the device-collected paths or the chain tensors;
   5. device: DP fill from the resident read codes + packed reference,
              extd2 forward + traceback kernels (ops.extd2_cuda) in three
-             size classes, results copied back behind one event;
+             size classes (programs.dp_program, a CUDA graph per chunk
+             shape with fuse_chain), results copied back behind one event;
   6. host:   C++ replay, ranking and (with native emit) PE pairing +
              BAM record encoding.
 
@@ -55,6 +59,7 @@ does; flagged rows take the exact host path either way.
 
 from __future__ import annotations
 
+import functools
 import json
 import os
 import sys
@@ -67,13 +72,9 @@ import torch
 
 from ..index.builder import RdBGIndex
 from ..index.device import device_guard, resolve_device, upload
-from ..ops import extd2_cuda
-from ..ops.chain import chain_batch, chain_extract_batch
-from ..ops.collect import select_and_paths
-from ..ops.extd2 import Extd2Params, plan
+from ..ops.extd2 import Extd2Params
 from ..parallel.mesh import (
     canonical_mesh,
-    front_stats,
     gather,
     index_replicas,
     row_shards,
@@ -92,17 +93,22 @@ from .host_align import (
     OriResult,
     SingleEndState,
 )
-from ..ops.seeding import (
-    BUDGET_OVERFLOW,
-    FLAT_OVERFLOW,
-    merge_expand_device3,
-    pack_reads,
-    seed_reads_flat,
+from ..ops.seeding import BUDGET_OVERFLOW, FLAT_OVERFLOW, pack_reads
+from .programs import (
+    ES_FIELDS,
+    FRONT_SHAPES,
+    GraphCache,
+    chain_at,
+    chain_pack,
+    chain_program,
+    dp_chunk,
+    dp_program,
+    front_parts,
+    front_program,
+    front_seeds,
 )
 
-_I32 = torch.int32
-_I64 = torch.int64
-# row axis of each host-collect chain tensor (_chain_pack), for the gather
+# row axis of each host-collect chain tensor (chain_pack), for the gather
 # of a mesh's per-entry chains
 _CHAIN_ROW_AXIS = dict(p32=0, p16=1, p8=0, hits8=1, hscore=0)
 
@@ -146,6 +152,13 @@ class EngineConfig:
     pipe_order: str = "late"     # stream_depth 1: the next batch's front
                                  # is enqueued after this batch's DP
                                  # ("late") or after its chain ("early")
+    fuse_chain: bool = True      # on a CUDA device (one, no mesh): each
+                                 # batch's front + chain (+ collect) and
+                                 # each DP chunk run as one CUDA graph
+                                 # per static shape set, captured once
+                                 # and replayed (align/programs.py);
+                                 # False enqueues them op by op. The CPU
+                                 # runs them op by op either way
 
     @property
     def max_read_len(self) -> int:
@@ -177,60 +190,6 @@ class EngineConfig:
         return [(q, t, W, n, max(n // 4, 128)) for q, t, W, n in classes]
 
 
-def unpack_codes(words: torch.Tensor, L: int) -> torch.Tensor:
-    """(B2, Wr) packed read words -> flat (B2*L,) uint8 codes (row-major,
-    fwd rows then rev rows: the glue's codes layout)."""
-    j = torch.arange(L, dtype=_I64, device=words.device)
-    w = (words.to(_I64) & 0xFFFFFFFF)[:, j >> 4]
-    return ((w >> ((15 - (j & 15)) * 2)) & 3).to(torch.uint8).reshape(-1)
-
-
-def dp_fill_meta(codes_flat, ref_words, qbase, qa, refst, tlen, rev,
-                 tru_len: int, cq: int, ct: int):
-    """One DP chunk's (B, cq)/(B, ct) code matrices built on the device
-    from the resident read codes + packed reference, from per-request
-    metadata (glue_fill_dp semantics: reversed rows for left extensions,
-    reference clamped to [0, true length) with 0 beyond)."""
-    dev = codes_flat.device
-    qbase, qa, refst, tlen, rev = (a.to(_I64) for a in
-                                   (qbase, qa, refst, tlen, rev))
-    j_q = torch.arange(cq, dtype=_I64, device=dev)[None, :]
-    qidx = qbase[:, None] + torch.where(rev[:, None] != 0,
-                                        qa[:, None] - 1 - j_q, j_q)
-    n_codes = codes_flat.shape[0]
-    qc = torch.where(j_q < qa[:, None],
-                     codes_flat[qidx.clamp(0, n_codes - 1)].to(_I32), 0)
-    j_t = torch.arange(ct, dtype=_I64, device=dev)[None, :]
-    tpos = refst[:, None] + torch.where(rev[:, None] != 0,
-                                        tlen[:, None] - 1 - j_t, j_t)
-    tok = (j_t < tlen[:, None]) & (tpos < tru_len)
-    rw = ref_words.to(_I64) & 0xFFFFFFFF
-    w = rw[(tpos >> 4).clamp(0, rw.shape[0] - 1)]
-    base = (w >> ((15 - (tpos & 15)) * 2)) & 3
-    tc = torch.where(tok, base, 0).to(_I32)
-    return qc, qa.to(_I32), tc, tlen.to(_I32)
-
-
-def dp_chunk(qc, ql, tc, tl, params: Extd2Params, W: int):
-    """Forward sweep + traceback of one DP chunk (extd2_cuda kernels on
-    a CUDA device, their plain versions on the CPU). Returns ops (B,
-    n_diag_pad) int8 in walk order and packed (8, B) int32 rows score,
-    mqe, max, max_q, max_t, zdropped, i_fin, j_fin."""
-    Qmax, Tmax = qc.shape[1], tc.shape[1]
-    _, n_diag_pad, _, _ = plan(Qmax, Tmax, W)
-    res = extd2_cuda.extd2_fwd(qc, ql, tc, tl, params, W)
-    # walk start: the end cell, or the max cell after a z-drop
-    i0 = torch.where(~res.zdropped, tl - 1,
-                     torch.where(res.max_t >= 0, res.max_t, -1)).to(_I32)
-    j0 = torch.where(~res.zdropped, ql - 1,
-                     torch.where(res.max_q >= 0, res.max_q, -1)).to(_I32)
-    ops, i_f, j_f = extd2_cuda.extd2_traceback(
-        res.dmat, ql, tl, i0, j0, params, W, n_diag_pad, Tmax)
-    packed = torch.stack([res.score, res.mqe, res.max, res.max_q, res.max_t,
-                          res.zdropped.to(_I32), i_f, j_f])
-    return ops, packed
-
-
 def dp_chunk_sharded(mesh, qc, ql, tc, tl, params: Extd2Params, W: int):
     """dp_chunk over a data mesh (the JAX _sharded_dp): host arrays qc
     (B, Qmax), ql, tc (B, Tmax), tl cut into contiguous problem slices,
@@ -244,28 +203,6 @@ def dp_chunk_sharded(mesh, qc, ql, tc, tl, params: Extd2Params, W: int):
                                     for a in (qc, ql, tc, tl)), params, W))
     return (gather([p[0] for p in parts], 0, mesh[0]),
             gather([p[1] for p in parts], 1, mesh[0]))
-
-
-def _chain(es, is_str, K: int):
-    """Chain at width K over a front's seeds, then the top-6 extraction:
-    (ChainResult, hit_idx, hit_score, hit_final)."""
-    cr = chain_batch(
-        es.read_begin[:, :K], es.read_end[:, :K], es.ref_begin[:, :K],
-        es.ref_end[:, :K], es.cov[:, :K], es.seed_id[:, :K],
-        es.valid[:, :K], is_str)
-    return (cr, *chain_extract_batch(cr.dist, cr.pre, cr.valid))
-
-
-def _chain_pack(cr, hit_idx, hit_score, hit_final) -> dict:
-    """The chain tensors the host collect reads, as int16/int8 where
-    they fit; fe rides as fe - fb."""
-    return dict(
-        p32=cr.ref_begin,
-        p16=torch.stack([cr.read_begin, cr.read_end,
-                         cr.ref_end - cr.ref_begin]).to(torch.int16),
-        p8=cr.pre.to(torch.int8),
-        hits8=torch.stack([hit_idx, hit_final]).to(torch.int8),
-        hscore=hit_score.to(torch.int16))
 
 
 def chain_unpack(out: dict, B: int, K: int):
@@ -379,6 +316,13 @@ class AlignEngine:
         # (index_upload: the index's host tables built and uploaded)
         self.prof: dict[str, float] = defaultdict(float)
         self.prof["index_upload"] = upload_s
+        # the per-batch programs as CUDA graphs (fuse_chain on one card);
+        # None: enqueued op by op
+        self._programs = GraphCache(self.device, self.prof) \
+            if (self.cfg.fuse_chain and self.device.type == "cuda"
+                and self.mesh is None) else None
+        # the DP graphs' read-code input, one buffer per codes length
+        self._codes_bufs: dict[int, torch.Tensor] = {}
         self._emit_ctx = None
         self._emit_pe = None
 
@@ -429,21 +373,32 @@ class AlignEngine:
     def _upload(self, a: np.ndarray) -> torch.Tensor:
         return upload(a, self.device)
 
-    def _download(self, tensors: dict):
+    def _to_host(self, tensors: dict, host: dict) -> None:
         """Start non-blocking copies of device tensors into pinned host
-        tensors and record one event behind them; _wait returns NumPy
-        views once the event has passed."""
-        if self.device.type != "cuda":
-            return tensors, None
-        host = {}
+        tensors host[k] (on the CPU: copies), so a later replay of the
+        program that wrote them cannot change what the host reads."""
         for k, t in tensors.items():
+            if self.device.type != "cuda":
+                host[k] = t.clone()
+                continue
             h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
             host[k] = h.copy_(t.contiguous(), non_blocking=True)
+
+    def _event(self, host: dict):
+        """(host, an event recorded behind the copies into it); _wait
+        returns NumPy views once the event has passed."""
+        if self.device.type != "cuda":
+            return host, None
         # the copies run on the stream of the tensors' device (a mesh's
         # results are gathered there first): the event goes behind them
         ev = torch.cuda.Event()
         ev.record(torch.cuda.current_stream(self.device))
         return host, ev
+
+    def _download(self, tensors: dict):
+        host = {}
+        self._to_host(tensors, host)
+        return self._event(host)
 
     def _wait(self, handle) -> dict:
         host, ev = handle
@@ -496,10 +451,8 @@ class AlignEngine:
                     self._finish_front(pend)
                     q_dp.append(pend)
                     if q_prep:
-                        t = time.perf_counter()
                         q_front.append(
-                            self._dispatch_front(q_prep.popleft().result()))
-                        self.prof["host_submit"] += time.perf_counter() - t
+                            self._submit_prepped(q_prep.popleft().result))
                         b = next(it, None)
                         if b is not None:
                             q_prep.append(pool.submit(self._prep_batch, *b))
@@ -526,24 +479,36 @@ class AlignEngine:
                 holder = {}
 
                 def dispatch_next(fut=prep_fut):
-                    t = time.perf_counter()
-                    holder["p"] = self._dispatch_front(fut.result())
-                    self.prof["host_submit"] += time.perf_counter() - t
+                    holder["p"] = self._submit_prepped(fut.result)
 
                 yield self._finish_batch(pend, on_dp_dispatched=dispatch_next)
-                pend = holder.get("p") or self._dispatch_front(
-                    prep_fut.result())
+                pend = holder.get("p") or self._submit_prepped(
+                    prep_fut.result)
 
     def _submit_batch(self, seqs, oris, aux=None):
-        t = time.perf_counter()
-        out = self._dispatch_front(self._prep_batch(seqs, oris, aux))
-        self.prof["host_submit"] += time.perf_counter() - t
-        return out
+        return self._submit_prepped(
+            functools.partial(self._prep_batch, seqs, oris, aux))
+
+    def _submit_prepped(self, get_prep):
+        """Dispatch the front of the batch get_prep() returns (waiting for
+        the prep worker's future, or preparing it here). host_submit is
+        the sum of prep_wait (get_prep) and front_enqueue (the uploads
+        and the front's replay or op-by-op enqueue)."""
+        t0 = time.perf_counter()
+        prep = get_prep()
+        t1 = time.perf_counter()
+        pend = self._dispatch_front(prep)
+        t2 = time.perf_counter()
+        self.prof["prep_wait"] += t1 - t0
+        self.prof["front_enqueue"] += t2 - t1
+        self.prof["host_submit"] += t2 - t0
+        return pend
 
     def _prep_batch(self, seqs: list[str], oris, aux=None):
         """Host-only batch preparation (encode, STR screen, packing);
         touches no device or adaptive state, so it runs in a worker
-        thread."""
+        thread. "prep_s" in the result: its own wall seconds."""
+        t0 = time.perf_counter()
         cfg = self.cfg
         n = len(seqs)
         n_pad = max(64, 1 << (max(n, 1) - 1).bit_length())
@@ -649,7 +614,7 @@ class AlignEngine:
         base = dict(states=states, active=active, n=n, n_pad=n_pad,
                     seqs=seqs, oris=oris, oversize=oversize, aux=aux)
         if not active:
-            base["front"] = None
+            base.update(front=None, prep_s=time.perf_counter() - t0)
             return base
         act_pad = np.zeros(n_pad, bool)
         act_pad[:n] = act_mask
@@ -658,7 +623,8 @@ class AlignEngine:
             lens2=np.concatenate([lens, lens]),
             mask2=np.concatenate([seed_mask_f, seed_mask_r], axis=0),
             is_str2=np.concatenate([is_str, is_str]), act_pad=act_pad,
-            S0=S0, L=L, codes_f=codes_f, codes_r=codes_r, lens=lens)
+            S0=S0, L=L, codes_f=codes_f, codes_r=codes_r, lens=lens,
+            prep_s=time.perf_counter() - t0)
         return base
 
     # ---- front + chain (+ collect), enqueued at dispatch ----------------
@@ -699,30 +665,11 @@ class AlignEngine:
         return m * n_pad, 2 * m * n_pad
 
     def _front(self, words, lens2, mask2, S0, S, M, n_ext, nf_mult, comp):
-        """Seeding front + merge/expand. Returns es, stats3 (3, rows)
-        [overflow, dropped, seed count] in full row space, and the row
-        map of a compacted front (None uncompacted)."""
-        if not comp:
-            return (*front_stats(self.didx, words, lens2, mask2, S0, S, M,
-                                 n_ext, nf_mult), None)
-        sb, rid, over_budget = seed_reads_flat(
-            self.didx, words, lens2, mask2, S0=S0, n_ext_steps=n_ext, M=M,
-            nf_mult=nf_mult, compact_rows=comp)
-        es = merge_expand_device3(sb, self.didx, S=S)
-        B_full = words.shape[0]
-        ridx = rid.to(_I64)
-
-        def scatter_full(init, vals):
-            # slot B_full takes the empty compacted slots (dropped)
-            out = torch.cat([init, init.new_zeros(1)])
-            return out.index_add_(0, ridx, vals.to(_I32))[:B_full]
-
-        zeros = torch.zeros(B_full, dtype=_I32, device=words.device)
-        ov = torch.where(over_budget, BUDGET_OVERFLOW, 0).to(_I32)
-        stats3 = torch.stack([scatter_full(ov, sb.n_overflow),
-                              scatter_full(zeros, es.n_dropped),
-                              scatter_full(zeros, es.valid.sum(1))])
-        return es, stats3, rid
+        """Seeding front + merge/expand (programs.front_seeds on the
+        engine's index): es, stats3, and the row map of a compacted
+        front (None uncompacted)."""
+        return front_seeds(self.didx, words, lens2, mask2, S0, S, M, n_ext,
+                           nf_mult, comp)
 
     def _chain_out(self, front: dict, K: int, n_pad: int, NC: int,
                    NP: int) -> dict:
@@ -735,30 +682,34 @@ class AlignEngine:
             for dev, es, is_str in zip(front["devs"], front["es"],
                                        front["is_str"]):
                 with device_guard(dev):
-                    parts.append(_chain_pack(*_chain(es, is_str, K)))
+                    parts.append(chain_pack(*chain_at(es, is_str, K)))
             return {k: gather([p[k] for p in parts], ax, self.device)
                     for k, ax in _CHAIN_ROW_AXIS.items()}
-        cr, hit_idx, hit_score, hit_final = _chain(front["es"],
-                                                   front["is_str"], K)
-        if NC:
-            co = select_and_paths(
-                cr.read_begin, cr.read_end, cr.ref_begin, cr.ref_end, cr.pre,
-                hit_idx, hit_score, hit_final, front["active"], front["rid"],
-                n_pad=n_pad, NC=NC, NP=NP)
-            return dict(over=co.over,
-                        scal=torch.cat([co.n_chains, co.n_nodes]),
-                        chain_meta=co.chain_meta, path_a=co.path_a,
-                        path_b=co.path_b,
-                        path_dfe=co.path_dfe.to(torch.int16))
-        out = _chain_pack(cr, hit_idx, hit_score, hit_final)
-        if front["rid"] is not None:
-            out["rid"] = front["rid"]
-        return out
+        return chain_program(front["es"], front["is_str"], front["rid"],
+                             front["active"], K, n_pad, NC, NP)
+
+    def _run_front(self, host: dict, shapes: dict) -> dict:
+        """front_program on the batch's host arrays: uploaded and enqueued
+        op by op, or copied into the inputs of the shape set's CUDA graph
+        and replayed (its outputs are the graph's: see _dispatch_front)."""
+        if self._programs is None:
+            return front_program(
+                self.didx, {k: self._upload(v) for k, v in host.items()},
+                shapes)
+        inputs = {k: torch.from_numpy(np.ascontiguousarray(v))
+                  for k, v in host.items()}
+        if self.device.type == "cuda":
+            inputs = {k: v.pin_memory() for k, v in inputs.items()}
+        return self._programs.run(
+            ("front", *(shapes[k] for k in FRONT_SHAPES)),
+            functools.partial(front_program, self.didx, shapes=shapes),
+            inputs)
 
     def _dispatch_front(self, prep):
         """Enqueue the batch's front, chain at the speculative width and
         collect, and start the copies of their results to the host; waits
         for nothing (main thread only)."""
+        self.prof["prep_s"] += prep.pop("prep_s", 0.0)
         if "front" in prep:
             return prep   # no active reads
         cfg = self.cfg
@@ -771,35 +722,46 @@ class AlignEngine:
         if self.mesh is not None:
             front = self._sharded_front(prep, S0, S, M, n_ext)
             comp = NC = NP = 0
+            out = self._chain_out(front, K, n_pad, NC, NP)
+            out["stats3"] = front["stats3"]
+            prep.update(front=front, chain=self._download(out),
+                        codes_flat=None)
         else:
             comp = self._compaction_budget(2 * n_pad)
             NC, NP = self._collect_budgets(n_pad) \
                 if self._use_device_collect() else (0, 0)
-            words = self._upload(prep.pop("words"))
-            lens2 = self._upload(prep.pop("lens2"))
-            mask2 = self._upload(prep.pop("mask2"))
-            is_str2 = self._upload(prep.pop("is_str2"))
-            act_pad = prep.pop("act_pad")
-            es, stats3, rid = self._front(words, lens2, mask2, S0, S, M,
-                                          n_ext, cfg.nf_mult, comp)
+            host = {k: prep.pop(k)
+                    for k in ("words", "lens2", "mask2", "is_str2", "act_pad")}
+            if not NC:
+                del host["act_pad"]
+            t = time.perf_counter()
+            out = self._run_front(host, dict(
+                L=L, n_pad=n_pad, S0=S0, S=S, M=M, n_ext=n_ext,
+                nf_mult=cfg.nf_mult, comp=comp, K=K, NC=NC, NP=NP))
+            self.prof["front_run"] += time.perf_counter() - t
+            chain, es, is_str, rid, active = front_parts(out)
             if rid is not None:
                 self.prof["n_compacted"] += 1
-                B_full = words.shape[0]
-                is_str2 = is_str2[rid.to(_I64).clamp(0, B_full - 1)] \
-                    & (rid < B_full)
-            front = dict(es=es, stats3=stats3, rid=rid, is_str=is_str2,
-                         active=self._upload(act_pad) if NC else None)
-        out = self._chain_out(front, K, n_pad, NC, NP)
-        out["stats3"] = front["stats3"]
-        prep.update(
-            front=front, chain=self._download(out),
-            shapes=dict(M=M, S=S, K=K, comp=comp, NC=NC, NP=NP),
-            read_class=L)
-        # the DP's read codes, queued behind the chain's download so that
-        # its readback does not wait for them (the mesh's DP inputs are
-        # filled on the host)
-        prep["codes_flat"] = None if self.mesh is not None \
-            else unpack_codes(words, L)
+            prep["chain"] = self._download(chain)
+            # what outlives this batch's replay (the next batches' fronts
+            # replay the same graph before this batch's chain is final):
+            # the DP's read codes, and, where the chain width can miss
+            # (K < min(S, 32)), the seeds a re-chain at full width reads
+            codes = out["codes"]
+            front = dict(es=es, is_str=is_str, rid=rid, active=active) \
+                if K < min(S, 32) else dict(es=None)
+            if self._programs is not None:
+                codes = codes.clone()
+                if front["es"] is not None:
+                    front = dict(
+                        es=es._replace(**{f: getattr(es, f).clone()
+                                          for f in ES_FIELDS}),
+                        is_str=is_str.clone(),
+                        rid=None if rid is None else rid.clone(),
+                        active=None if active is None else active.clone())
+            prep.update(front=front, codes_flat=codes)
+        prep.update(shapes=dict(M=M, S=S, K=K, comp=comp, NC=NC, NP=NP),
+                    read_class=L)
         return prep
 
     def _sharded_front(self, prep, S0, S, M, n_ext) -> dict:
@@ -882,6 +844,9 @@ class AlignEngine:
         if kmax > K and K < 32:
             # speculation missed: re-chain at the full width of the es
             # this batch's front produced
+            if front["es"] is None:
+                raise RuntimeError(f"chain width {K} missed ({kmax} seeds) "
+                                   "but the front's seeds were not kept")
             K = min(sh["S"], 32)
             t = time.perf_counter()
             out.update(self._wait(self._download(
@@ -1080,12 +1045,41 @@ class AlignEngine:
                  f"{cfg.max_seeds}, {cfg.chain_bucket}, {cfg.nf_mult})")
 
     # ---- DP ------------------------------------------------------------
+    def _dp_codes(self, codes: torch.Tensor) -> torch.Tensor:
+        """The batch's read codes where its DP chunks read them: in place
+        op by op; with graphs, copied into the engine's buffer of that
+        length, which every DP graph of the length reads."""
+        if self._programs is None:
+            return codes
+        buf = self._codes_bufs.get(codes.shape[0])
+        if buf is None:
+            buf = self._codes_bufs[codes.shape[0]] = torch.empty_like(codes)
+        return buf.copy_(codes, non_blocking=True)
+
+    def _run_dp(self, codes, meta, cq: int, ct: int, W: int,
+                size: int) -> dict:
+        """dp_program on one chunk's (5, size) metadata: op by op, or by
+        the replay of the shape set's CUDA graph (whose outputs the next
+        replay of the same graph overwrites)."""
+        fn = functools.partial(dp_program, codes, self.didx.ref_words,
+                               cq=cq, ct=ct, W=W, size=size,
+                               params=self.dp_params,
+                               tru_len=self._tru_ref_len)
+        if self._programs is None:
+            return fn(meta)
+        return self._programs.run(
+            ("dp", codes.shape[0], cq, ct, W, size),
+            lambda inputs: fn(inputs["meta"]), {"meta": meta},
+            fixed=(codes, self.didx.ref_words))
+
     def _dispatch_dp_from_gb(self, pend, gb, on_dp_dispatched=None):
         """DP over three size classes, each size-sorted and cut into
         full chunks plus quarter-size residue chunks; every chunk's
         request metadata goes up in one copy (on a mesh: each chunk's
-        host-filled codes, sliced over the entries), every result comes
-        back behind one event."""
+        host-filled codes, sliced over the entries), each chunk's results
+        start their copy to the host right behind it, and one event goes
+        behind the last. dp_dispatch = dp_layout (the host layout) +
+        dp_enqueue (the rest)."""
         cfg = self.cfg
         t = time.perf_counter()
         classes = cfg.dp_classes(pend["read_class"])
@@ -1107,40 +1101,42 @@ class AlignEngine:
                 layout.append((cq, ct, W, members[c0 : c0 + size], size, off))
                 off += size
                 c0 += size
+        if layout and self.mesh is None:
+            meta5 = gb.req_meta()
+            if meta5 is None:
+                raise RuntimeError(
+                    "native glue returned no DP request metadata")
+            # padding problems: empty query/target of length 1
+            meta = np.repeat(
+                np.array([[0], [1], [0], [1], [0]], np.int32), off, axis=1)
+            for cq, ct, W, mem, size, o in layout:
+                meta[:, o : o + len(mem)] = meta5[:, mem]
+        t_layout = time.perf_counter()
         chunks = []
-        if layout:
-            outs = {}
+        host = {}
+        if layout and self.mesh is None:
+            meta_dev = self._upload(meta)
+            codes = self._dp_codes(pend["codes_flat"])
+        for k, (cq, ct, W, mem, size, o) in enumerate(layout):
             if self.mesh is None:
-                meta5 = gb.req_meta()
-                if meta5 is None:
-                    raise RuntimeError(
-                        "native glue returned no DP request metadata")
-                # padding problems: empty query/target of length 1
-                meta = np.repeat(
-                    np.array([[0], [1], [0], [1], [0]], np.int32), off, axis=1)
-                for cq, ct, W, mem, size, o in layout:
-                    meta[:, o : o + len(mem)] = meta5[:, mem]
-                meta_dev = self._upload(meta)
-            for k, (cq, ct, W, mem, size, o) in enumerate(layout):
-                if self.mesh is None:
-                    m = meta_dev[:, o : o + size]
-                    qc, ql, tc, tl = dp_fill_meta(
-                        pend["codes_flat"], self.didx.ref_words, m[0], m[1],
-                        m[2], m[3], m[4], self._tru_ref_len, cq, ct)
-                    ops, packed = dp_chunk(qc, ql, tc, tl, self.dp_params, W)
-                else:
-                    ops, packed = dp_chunk_sharded(
-                        self.mesh, *gb.fill_dp(mem, cq, ct, size),
-                        self.dp_params, W)
-                outs[f"ops{k}"] = ops[: len(mem)]
-                outs[f"packed{k}"] = packed[:, : len(mem)]
-                chunks.append(mem)
-            handle = self._download(outs)
-        else:
-            handle = ({}, None)
+                res = self._run_dp(codes, meta_dev[:, o : o + size], cq, ct,
+                                   W, size)
+                ops, packed = res["ops"], res["packed"]
+            else:
+                ops, packed = dp_chunk_sharded(
+                    self.mesh, *gb.fill_dp(mem, cq, ct, size),
+                    self.dp_params, W)
+            # packed whole (its columns past len(mem) are cut on the host)
+            self._to_host({f"ops{k}": ops[: len(mem)],
+                           f"packed{k}": packed}, host)
+            chunks.append(mem)
+        handle = self._event(host) if layout else ({}, None)
         big = np.nonzero(assigned < 0)[0]
         self.prof["n_dp_chunks"] += len(chunks)
-        self.prof["dp_dispatch"] += time.perf_counter() - t
+        t_end = time.perf_counter()
+        self.prof["dp_layout"] += t_layout - t
+        self.prof["dp_enqueue"] += t_end - t_layout
+        self.prof["dp_dispatch"] += t_end - t
         if on_dp_dispatched is not None:
             on_dp_dispatched()
         pend["dp"] = ("native", gb, chunks, handle, big, ql_all, tl_all)
@@ -1169,7 +1165,8 @@ class AlignEngine:
         res = self._wait(handle)
         for k, mem in enumerate(chunks):
             # ops carry 3 (= no op) at skipped diagonals
-            gb.set_dp_chunk(mem, res[f"ops{k}"], res[f"packed{k}"], True)
+            gb.set_dp_chunk(mem, res[f"ops{k}"],
+                            res[f"packed{k}"][:, : len(mem)], True)
         self.prof["sync_dp"] += time.perf_counter() - t2
 
         t = time.perf_counter()

@@ -24,6 +24,7 @@ import contextlib
 import itertools
 import os
 import sys
+import time
 
 
 def _fl_arg(v: str):
@@ -77,12 +78,15 @@ def _cmd_fc_signal(args):
             fh.write(stats.status_file_text())
 
 
-def run_fc_aln(args, config=None, mesh=None):
+def run_fc_aln(args, config=None, mesh=None, tracer=None):
     """signal FASTQ + index -> realigned BAM; returns the engine (its
-    .prof holds the phase timers and counts). `config`: an
+    .prof holds the phase timers and counts, "stream_s" the wall of the
+    stream after the engine is built). `config`: an
     align.engine.EngineConfig (default: its defaults); `mesh`: a data
     mesh (parallel.mesh.make_data_mesh) for the engine, which then
-    ignores args.device."""
+    ignores args.device; `tracer`: a context (a torch.profiler.profile)
+    entered around the stream only, after the engine is built and the
+    index is on the device."""
     from ..align import native_glue
     from ..align.bam_out import EmitContext, min_filter_score
     from ..align.engine import AlignEngine
@@ -150,7 +154,8 @@ def run_fc_aln(args, config=None, mesh=None):
                 yield ([p[1] for p in chunk],
                        [parse_signal_comment(p[3])[0] for p in chunk])
 
-    tracer = contextlib.nullcontext()
+    if tracer is None:
+        tracer = contextlib.nullcontext()
     if args.trace:
         import torch
 
@@ -159,8 +164,14 @@ def run_fc_aln(args, config=None, mesh=None):
             acts.append(torch.profiler.ProfilerActivity.CUDA)
         tracer = torch.profiler.profile(activities=acts)
     with tracer as prof:
+        t = time.perf_counter()
         _run_aln_stream(chunks_a, eng, pe, writer, ori_writer, header, filt,
                         batch_stream)
+        if eng.device.type == "cuda":
+            import torch
+
+            torch.cuda.synchronize(eng.device)
+        eng.prof["stream_s"] = time.perf_counter() - t
     if tune_path:
         try:
             eng.save_tuning(tune_path)

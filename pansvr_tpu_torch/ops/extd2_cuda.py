@@ -45,6 +45,10 @@ LAUNCHES_BY_SHAPE: dict = {}
 # while a dict (keep_samples): the wrapper arguments of the last launch at
 # each (kernel, Tmax, W, B), for timing a pass's kernels alone afterwards
 SAMPLES: dict | None = None
+# while a list (record_launches): launches are recorded here instead of
+# counted (a CUDA graph's capture, which count_launches counts at every
+# replay)
+RECORD: list | None = None
 
 _I32 = torch.int32
 _I32MAX = 0x7FFFFFFF
@@ -75,11 +79,37 @@ def keep_samples():
         SAMPLES = None
 
 
+@contextlib.contextmanager
+def record_launches():
+    """Within the block, launches are not counted but appended to the
+    list it yields as (kernel, Tmax, W, B, args)."""
+    global RECORD
+    prev, RECORD = RECORD, []
+    try:
+        yield RECORD
+    finally:
+        RECORD = prev
+
+
+def count_launches(record) -> None:
+    """Count the launches of a record_launches list (a graph replay
+    running them again); their arguments are the captured tensors, which
+    hold the latest replay's data."""
+    for launch in record:
+        _count(*launch)
+
+
 def _count(kernel: str, Tmax: int, W: int, B: int, args: tuple) -> None:
+    if RECORD is not None:
+        # the arguments only while samples are kept: they hold a graph's
+        # intermediate tensors, which its memory pool could reuse
+        RECORD.append((kernel, Tmax, W, B,
+                       args if SAMPLES is not None else None))
+        return
     LAUNCHES[kernel] += 1
     key = (kernel, Tmax, W, B)
     LAUNCHES_BY_SHAPE[key] = LAUNCHES_BY_SHAPE.get(key, 0) + 1
-    if SAMPLES is not None:
+    if SAMPLES is not None and args is not None:
         SAMPLES[key] = args
 
 

@@ -112,3 +112,41 @@ def pass_table(samples: dict, launches: dict, int_rate: float,
         row["pass_ms"] = n * row["kernel_ms"]
         rows.append(row)
     return rows
+
+
+def device_activity(prof, wall_s: float, top: int = 12) -> dict:
+    """What a finished torch.profiler run (CPU and CUDA activities) saw
+    of the card over a region of wall_s host seconds: busy_s, the union
+    of the device intervals of its kernels, copies and sets (kernels in
+    a CUDA graph's replay included), idle_share = 1 - busy_s / wall_s,
+    the device kernels it ran, the host's CUDA runtime calls by name
+    ([count, ms]: cudaLaunchKernel, cudaGraphLaunch, cudaMemcpyAsync,
+    ...), and the `top` host operations by their own CPU time ([name,
+    count, ms])."""
+    from torch.autograd import DeviceType
+
+    spans, kernels, calls = [], 0, {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            spans.append((e.time_range.start, e.time_range.end))
+            if not e.name.startswith(("Memcpy", "Memset")):
+                kernels += 1
+        elif e.name.startswith("cuda"):
+            c = calls.setdefault(e.name, [0, 0.0])
+            c[0] += 1
+            c[1] += e.time_range.elapsed_us() / 1e3
+    busy_us, end = 0.0, float("-inf")
+    for a, b in sorted(spans):
+        if b > end:
+            busy_us += b - max(a, end)
+            end = b
+    busy_s = busy_us / 1e6
+    host = sorted(((k.key, k.count, k.self_cpu_time_total / 1e3)
+                   for k in prof.key_averages()
+                   if k.self_cpu_time_total > 0), key=lambda r: -r[2])
+    return dict(wall_s=wall_s, busy_s=busy_s,
+                idle_share=1 - busy_s / wall_s if wall_s else None,
+                kernels=kernels,
+                runtime_calls={k: [n, round(ms, 3)]
+                               for k, (n, ms) in sorted(calls.items())},
+                top_host=[[k, n, round(ms, 3)] for k, n, ms in host[:top]])

@@ -53,8 +53,8 @@ of the stage: RUSAGE_CHILDREN of a wrapper around it):
              on D equals its HostAligner field by field; (e) at a fixed
              first level, the same reads on D over an index of the same
              anchors at the auto first level give (a)'s BAM records; on a
-             card, one profiled depth-3 pass over the reads gives the
-             device's busy share
+             card, one profiled depth-3 pass over the reads, profiled
+             after the engine is built, gives the card's idle share
   compare    (c) result_shard.vcf's records equal result_inline.vcf's and
              the fan-out's records on the shard's chromosomes; (d) if
              DIR/result_jax.vcf is there (the JAX package's fc_sv over
@@ -420,25 +420,26 @@ def _child_sv_inline(p: dict, a) -> dict:
                 n_pass=sum(v.passed for v in verdicts), dp=dp.prof)
 
 
-def _device_busy_share(run) -> dict:
-    """torch.profiler (CPU + CUDA) over run(): the device time of every
-    event over the wall of run() (one stream, so the sum is the busy
-    time), with the profiler on."""
+def profiled_fc_aln(argv: list, config) -> dict:
+    """fc_aln (the CLI's run_fc_aln on argv) with torch.profiler (CPU and
+    CUDA) over its stream only, started after the engine is built and
+    the index is on the card: kernel_bounds.device_activity of the
+    stream (its wall with the profiler on), the batches, and the
+    engine's graph counters."""
     import torch
+
+    from .cli.main import parse_args, run_fc_aln
+    from .ops.kernel_bounds import device_activity
 
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        t = time.perf_counter()
-        run()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t
-    dev_us = 0.0
-    for e in prof.key_averages():
-        dev_us += getattr(e, "self_device_time_total",
-                          getattr(e, "self_cuda_time_total", 0.0))
-    return dict(wall_s=wall, device_busy_s=dev_us / 1e6,
-                busy_share=dev_us / 1e6 / wall if wall else None)
+    prof = torch.profiler.profile(activities=acts)
+    eng = run_fc_aln(parse_args(argv), config=config, tracer=prof)
+    p = eng.prof
+    return dict(batches=int(p["n_batches"]),
+                n_graph_capture=int(p["n_graph_capture"]),
+                n_graph_replay=int(p["n_graph_replay"]),
+                **device_activity(prof, p["stream_s"]))
 
 
 def _child_parity(p: dict, a) -> dict:
@@ -486,9 +487,15 @@ def _child_parity(p: dict, a) -> dict:
                b_reads_with_alignments=world.host_parity(eng, seqs, oris))
     if eng.device.type == "cuda":
         name, cfg = CONFIGS[0]
+        tune = os.path.join(idx_dir, "engine_tune.json")
+        if os.path.exists(tune):
+            os.remove(tune)
         out["profiled_pass"] = dict(config=name, reads=n_head, **(
-            _device_busy_share(lambda: fc_aln(
-                a.device, cfg, os.path.join(d, "head_profiled.bam")))))
+            profiled_fc_aln([
+                "fc_aln", idx_dir, head, p["header"], "-o",
+                os.path.join(d, "head_profiled.bam"), "-r", p["status"],
+                "-b", str(BATCH), "--device", a.device],
+                EngineConfig(**cfg))))
     return out
 
 

@@ -9,7 +9,8 @@ modules build its worlds), so it runs on a machine with the card alone:
 bit-exact against their plain PyTorch versions on the card, and the card
 engine against the CPU engine and the NumPy host aligner: its device
 collect, its depth-3 stream with the adaptive state after every batch,
-and a whole batch without a stream sync.
+and a whole batch without a stream sync; the per-batch CUDA graphs
+(align/programs.py) against the same programs enqueued op by op.
 """
 
 import numpy as np
@@ -507,3 +508,154 @@ def test_traceback_over_48k_shared_memory_on_two_cards(two_cards):
                                  n_diag_pad, T)
         for a, b in zip(want, got):
             assert torch.equal(a, b.cpu())
+
+
+@pytest.fixture(scope="module")
+def graph_worlds(tmp_path_factory):
+    """A small bench world, its overflow world (widening and batch
+    retries) and its uniform world (compaction): (world, -b) each."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from pansvr_tpu_torch import world
+
+    d = tmp_path_factory.mktemp("graphs")
+    w = world.build_bench_world(str(d / "bench"), n_pairs=6000)
+    return dict(
+        bench=(w, 1024),
+        overflow=(world.build_overflow_world(w, str(d / "ovf"),
+                                             n_reads=8192), 2048),
+        uniform=(world.build_uniform_world(w, str(d / "uni"),
+                                           n_pairs=4096), 512))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,depth", [("bench", 3), ("bench", 1),
+                                        ("overflow", 3), ("uniform", 3)])
+def test_graphs_match_op_by_op(cuda_device, graph_worlds, tmp_path, name,
+                               depth):
+    """fc_aln with the per-batch CUDA graphs (fuse_chain, the default) and
+    op by op (fuse_chain=False) on the card: identical BAM records and
+    the same K1/K2 launches by DP shape; the graphs were captured and
+    replayed."""
+    import os
+
+    from pansvr_tpu_torch import world
+    from pansvr_tpu_torch.align.engine import EngineConfig
+    from pansvr_tpu_torch.cli.main import parse_args, run_fc_aln
+
+    w, batch = graph_worlds[name]
+    out = {}
+    for fuse in (True, False):
+        tune = os.path.join(w["index"], "engine_tune.json")
+        if os.path.exists(tune):
+            os.remove(tune)
+        bam = str(tmp_path / f"{fuse}.bam")
+        ec.reset_launches()
+        eng = run_fc_aln(parse_args([
+            "fc_aln", w["index"], w["signal"], w["header"], "-o", bam,
+            "-r", w["status"], "-b", str(batch)]),
+            config=EngineConfig(fuse_chain=fuse, stream_depth=depth))
+        out[fuse] = (world.bam_records(bam), dict(ec.LAUNCHES_BY_SHAPE),
+                     eng.prof)
+    (a, la, p), (b, lb, q) = out[True], out[False]
+    assert a and a == b
+    assert la == lb and la
+    assert p["n_graph_capture"] > 0 and p["n_graph_replay"] > p["n_graph_capture"]
+    assert not q["n_graph_capture"] and not q["n_graph_replay"]
+    for k in ("n_batches", "n_dp_chunks", "n_rechain", "n_widen", "n_retry",
+              "n_compacted", "n_fallback"):
+        assert p[k] == q[k], k
+    if name == "overflow":
+        assert p["n_widen"] and p["n_retry"]
+    if name == "uniform":
+        assert p["n_compacted"]
+
+
+@pytest.mark.cuda
+def test_replayed_batch_makes_no_stream_sync(cuda_device, small_world):
+    """A batch that only replays graphs (front + chain + collect, every DP
+    chunk) with the sync debug mode set to raise."""
+    from pansvr_tpu_torch.align.host_align import OriResult
+    from pansvr_tpu_torch.align.engine import AlignEngine
+
+    idx, names, seqs = small_world
+    oris = [OriResult(unmapped=True)] * len(seqs)
+    eng = AlignEngine(idx, ori_chrom_names=names, device=cuda_device)
+    for _ in range(3):      # K settles, every shape set captured
+        eng.align_batch(seqs, oris)
+    n_cap, n_rep, n_dp = (eng.prof[k] for k in (
+        "n_graph_capture", "n_graph_replay", "n_dp_chunks"))
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = eng.align_batch(seqs, oris)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert any(s.results for s in got)
+    assert eng.prof["n_graph_capture"] == n_cap
+    assert eng.prof["n_graph_replay"] - n_rep == \
+        1 + eng.prof["n_dp_chunks"] - n_dp
+
+
+@pytest.mark.cuda
+def test_dp_graph_with_k2_over_48k_matches_eager(cuda_device):
+    """A DP chunk at 176x256 / W256 (K2 raises its shared-memory limit
+    over 48 KiB before the launch, inside the capture) as a CUDA graph:
+    equal to the eager program at every replay, on new metadata each
+    time; its K1 and K2 launches counted once per replay."""
+    from collections import defaultdict
+
+    from pansvr_tpu_torch.align.programs import GraphCache, dp_program
+
+    rng = np.random.default_rng(9)
+    L, rows, size = 256, 512, 128
+    codes = torch.from_numpy(rng.integers(0, 4, rows * L).astype(np.uint8))
+    ref = torch.from_numpy(rng.integers(-2**31, 2**31 - 1, 4096,
+                                        dtype=np.int64).astype(np.int32))
+    tru = 4096 * 16 - 100
+
+    def meta():
+        qa = rng.integers(1, 177, size)
+        tl = rng.integers(1, 257, size)
+        return torch.from_numpy(np.stack([
+            rng.integers(0, rows, size) * L + rng.integers(0, L - qa + 1),
+            qa, rng.integers(0, tru, size), tl,
+            rng.integers(0, 2, size)]).astype(np.int32))
+
+    dev_codes, dev_ref = codes.to(cuda_device), ref.to(cuda_device)
+    prof = defaultdict(float)
+    cache = GraphCache(cuda_device, prof)
+    kw = dict(cq=176, ct=256, W=256, size=size, params=ALN, tru_len=tru)
+    fn = lambda inputs: dp_program(dev_codes, dev_ref, inputs["meta"], **kw)  # noqa: E731
+    ec.reset_launches()
+    for i in range(3):
+        m = meta()
+        got = cache.run(("dp",), fn, {"meta": m.to(cuda_device)},
+                        fixed=(dev_codes, dev_ref))
+        want = dp_program(codes, ref, m, **kw)
+        for k in ("ops", "packed"):
+            assert torch.equal(got[k].cpu(), want[k]), (i, k)
+    assert prof["n_graph_capture"] == 1 and prof["n_graph_replay"] == 3
+    assert ec.LAUNCHES == {"extd2_fwd": 3, "extd2_tb": 3}
+
+
+@pytest.mark.cuda
+def test_failed_capture_raises(cuda_device):
+    """A program that reads a device value back cannot be captured: the
+    cache raises and keeps no graph (the engine has no op-by-op
+    fallback). Last in the file: a failed capture may leave its memory
+    pool marked as capturing."""
+    from collections import defaultdict
+
+    from pansvr_tpu_torch.align.programs import GraphCache
+
+    prof = defaultdict(float)
+    cache = GraphCache(cuda_device, prof)
+    x = torch.arange(8, device=cuda_device)
+
+    def reads_back(inputs):
+        return {"y": inputs["x"] * int(inputs["x"].sum().item())}
+
+    with pytest.raises(RuntimeError):
+        cache.run(("reads_back",), reads_back, {"x": x})
+    assert len(cache) == 0 and not prof["n_graph_capture"]
+    assert not prof["n_graph_replay"]
