@@ -36,8 +36,8 @@ Phases, each timed; any failure raises (exit code != 0, no result line):
              collect (the defaults: each batch's front + chain + collect
              and each DP chunk replayed as CUDA graphs), depth 1 with host
              collect, and the first enqueued op by op (fuse_chain=False);
-             one warm-up pass each, then three timed passes each, taken in
-             turns (each printed, the median is the result; the split host
+             one warm-up pass each, then N_TIMED timed passes each, taken
+             in turns (each printed, the median is the result; the split host
              timers, CUDA graph captures with their seconds and replays,
              peak GPU memory allocated and reserved, kernel launches per
              pass by DP shape); the three give identical BAM records, and
@@ -101,7 +101,10 @@ Phases, each timed; any failure raises (exit code != 0, no result line):
              N_CHROM_PAIRS, built by scale_run's gen, anchor, index and
              signal stages (a process each); fc_aln on the card, host
              fallback <= 5% of the reads with a hit, its split host
-             timers and graph counters; the first 16,384 reads (or all)
+             timers and graph counters; the same pass op by op gives
+             identical BAM records and keys the same shape sets, with one
+             capture a shape set and no graph evicted (captures, replays
+             and reserved memory logged); the first 16,384 reads (or all)
              give identical BAM records on the CPU and the card in all
              three configurations; sort + BAI; fc_sv on the card, its VCF
              records equal the inline native DP's
@@ -113,7 +116,8 @@ Phases, each timed; any failure raises (exit code != 0, no result line):
              process each): the full 4^14 bucket table and ~4.7M k-mers;
              fc_aln on the card (reads/s, device index bytes, host
              fallback <= 5% of the reads with a hit, split host timers and
-             graph counters, then phase 6's profiled passes on its reads);
+             graph counters; the same pass op by op as in phase 14, then
+             phase 6's profiled passes on its reads);
              (a) the first 8,192 reads give identical BAM records on the
              CPU and the card in all three configurations; (e) the same
              reads on the card over an
@@ -161,16 +165,17 @@ from pansvr_tpu_torch.ops.kernel_bounds import (  # noqa: E402
     HBM_BYTES_PER_S, ISSUE_LANES_PER_SM, cuda_ms, int_ops_per_s, k1_bound,
     k2_bound)
 # -b of fc_aln, the parity read counts, the fallback limit and the timed
-# engine configurations: (name, EngineConfig fields)
+# engine configurations: (name, EngineConfig fields); OPS_CONFIG, the last
+# of them, is the first enqueued op by op (fuse_chain=False) instead of
+# replaying its per-batch CUDA graphs: timed in the same turns as the
+# others (phase 5) and held to the same BAM records wherever they are
+# compared
 from pansvr_tpu_torch.scale_run import (  # noqa: E402
-    BATCH, CONFIGS, MAX_FALLBACK, N_BAM_PARITY, N_HOST_PARITY,
-    profiled_fc_aln)
+    BATCH, CONFIGS, MAX_FALLBACK, N_BAM_PARITY, N_HOST_PARITY, OPS_CONFIG,
+    graph_report, profiled_fc_aln, same_records)
 
-# the first configuration enqueued op by op (fuse_chain=False) instead of
-# replaying its per-batch CUDA graphs: timed in the same turns as CONFIGS
-# (phase 5) and held to the same BAM records wherever they are compared
-OPS_CONFIG = (CONFIGS[0][0] + "_ops", dict(CONFIGS[0][1], fuse_chain=False))
-BENCH_CONFIGS = CONFIGS + (OPS_CONFIG,)
+# the configurations with CUDA graphs
+GRAPH_CONFIGS = tuple(c for c in CONFIGS if c != OPS_CONFIG)
 # reads of the profiled passes (profiler started after the engine build)
 N_PROFILED = 65_536
 # the engine's host timers and graph counters every fc_aln pass reports
@@ -188,7 +193,11 @@ DP_SETS = ((48, 64, 64, ALN, 2048, 64), (96, 128, 128, ALN, 2048, 64),
            (176, 256, 256, ALN, 2048, 64), (272, 352, 256, ALN, 2048, 64),
            (576, 704, 192, SV, 256, 16))
 MAIN_SHAPE = (48, 64, 64)   # the main path's dominant DP chunk shape
-N_TIMED = 3          # timed fc_aln passes after the warm-up; median reported
+# timed fc_aln passes after the warm-up (the median, of two the slower,
+# is reported); with the mesh's counted passes, cut from 3 and 2 to keep
+# the script near half its time limit since the scale phases run their
+# passes twice
+N_TIMED = 2
 N_OVERFLOW = 32_768
 N_UNIFORM_PAIRS = 12_288
 UNIFORM_BATCH = 2048
@@ -202,7 +211,7 @@ N_MESH = 2
 # the mesh engine's modes (a CUDA graph per entry, op by op) and its timed
 # passes of each, taken in turns after a warm-up pass of each
 MESH_MODES = (("mesh", True), ("mesh_ops", False))
-N_MESH_TIMED = 2
+N_MESH_TIMED = 1
 N_SHARDED_DP = 256
 # phase 14: read pairs of the chromosome-scale world (its 100 Mbp genome
 # and 2,000 SVs whole), cut so that the phase takes about 2 min
@@ -610,13 +619,13 @@ def bench_passes(w, tmp, dev, launches, n_reads, n_timed=N_TIMED):
     import torch
 
     cuda = dev.type == "cuda"
-    for name, cfg in BENCH_CONFIGS:
+    for name, cfg in CONFIGS:
         fc_aln(w, w["signal"], os.path.join(tmp, f"warm_{name}.bam"),
                dev.type, **cfg)
     res = {name: dict(walls=[], peak_mib=0.0, reserved_mib=0.0)
-           for name, _ in BENCH_CONFIGS}
+           for name, _ in CONFIGS}
     for _ in range(n_timed):
-        for name, cfg in BENCH_CONFIGS:
+        for name, cfg in CONFIGS:
             r = res[name]
             out = os.path.join(tmp, f"{name}.bam")
             if cuda:
@@ -711,7 +720,7 @@ def profiled_phase(w, tmp, dev, what, n_reads=N_PROFILED,
     return out
 
 
-def sync_counts(w, dev, n=BATCH, configs=CONFIGS, mesh=None) -> dict:
+def sync_counts(w, dev, n=BATCH, configs=GRAPH_CONFIGS, mesh=None) -> dict:
     """Phase 6: stream syncs PyTorch reports for one n-read batch per
     configuration (over `mesh` when one is given; after three warm-up
     batches), and the engine's event waits. Returns {config: (syncs,
@@ -1185,6 +1194,65 @@ def build_scale_world(d, name, dev, *opts):
         return json.load(fh)
 
 
+def graphs_vs_ops(w, d, dev, launches, what, eng, aln):
+    """Phases 14-15: the world's whole fc_aln pass op by op (OPS_CONFIG,
+    from the default lane budgets, counted as path `what`_ops) beside its
+    pass with CUDA graphs (the engine `eng`, which wrote `aln`): identical
+    BAM records, the same shape sets keyed, one capture a shape set and
+    no graph evicted. Returns both passes' graph counters and the op-by-op
+    pass's wall and reserved GPU memory."""
+    import torch
+
+    cuda = dev.type == "cuda"
+    g = graph_report(eng)
+    if cuda and not (g["n_graph_capture"] and g["n_graph_replay"]):
+        raise AssertionError(f"{what}: the pass replayed no CUDA graph")
+    if g["n_graph_evict"]:
+        raise AssertionError(f"{what}: {g['n_graph_evict']:.0f} CUDA graphs "
+                             f"evicted ({g['n_front_shape_sets']:.0f} front "
+                             f"and {g['n_dp_shape_sets']:.0f} DP shape sets)")
+    if cuda and g["n_graph_capture"] != (g["n_front_shape_sets"]
+                                         + g["n_dp_shape_sets"]):
+        raise AssertionError(f"{what}: {g['n_graph_capture']:.0f} captures "
+                             "for other than one a shape set")
+    ops_bam = os.path.join(d, "aln_ops.bam")
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    drop_tuning(w)
+    t = time.perf_counter()
+    eng_ops = counted(launches, f"{what}_ops", lambda: fc_aln(
+        w, w["signal"], ops_bam, dev.type, **OPS_CONFIG[1]))
+    if cuda:
+        torch.cuda.synchronize()
+    ops_s = time.perf_counter() - t
+    go = graph_report(eng_ops)
+    n = same_records(aln, ops_bam, f"{what}: fc_aln with CUDA graphs vs op "
+                     "by op")
+    if (go["n_front_shape_sets"], go["n_dp_shape_sets"]) != (
+            g["n_front_shape_sets"], g["n_dp_shape_sets"]):
+        raise AssertionError(f"{what}: shape sets differ with and without "
+                             f"graphs: {g} vs {go}")
+    out = dict(ops_s=ops_s,
+               ops_reads_per_s=int(eng_ops.prof["n_reads"]) / ops_s,
+               ops_reserved_mib=torch.cuda.max_memory_reserved() / 2**20
+               if cuda else 0.0, records=n,
+               graphs={k: v for k, v in g.items() if k != "shape_set_keys"})
+    log(f"{what} fc_aln op by op: {int(eng_ops.prof['n_reads'])} reads in "
+        f"{ops_s:.3f} s = {out['ops_reads_per_s']:.1f} reads/s, "
+        f"{out['ops_reserved_mib']:.1f} MiB reserved; {n} BAM records "
+        f"identical to the pass with CUDA graphs: "
+        f"{g['n_graph_capture']:.0f} captures in "
+        f"{g['graph_capture_s']:.3f} s (warm-ups "
+        f"{g['graph_warmup_s']:.3f} s), {g['n_graph_replay']:.0f} replays in "
+        f"{g['graph_replay_s']:.3f} s, {g['n_graph_evict']:.0f} evicted, at "
+        f"most {g['n_graph_held_max']:.0f} held; shape sets front "
+        f"{g['n_front_shape_sets']:.0f}, DP {g['n_dp_shape_sets']:.0f} "
+        "(the same op by op)")
+    return out
+
+
 def chrom_phase(tmp, dev, launches):
     """Phase 14: the chromosome-scale world (world.build_chrom_world's
     recipe whole, N_CHROM_PAIRS read pairs) through scale_run's gen,
@@ -1247,6 +1315,7 @@ def chrom_phase(tmp, dev, launches):
         f"{LAUNCH_SHAPES['chrom']}")
     out["prof"] = {k: round(v, 4) for k, v in sorted(p.items())}
     log("chromosome world fc_aln split host timers (s): " + split_line(p))
+    out["ops"] = graphs_vs_ops(w, d, dev, launches, "chrom", eng, aln)
     if out["fallback"] > MAX_FALLBACK * hit:
         raise AssertionError(f"chromosome world: host fallback "
                              f"{out['fallback']} > {MAX_FALLBACK:.0%} of {hit}")
@@ -1255,7 +1324,7 @@ def chrom_phase(tmp, dev, launches):
     n_head = world.head_signal(w["signal"], head, N_BAM_PARITY)
     bams = []
     for device, name, cfg in [("cpu", "default", {})] + [
-            (dev.type, name, cfg) for name, cfg in BENCH_CONFIGS]:
+            (dev.type, name, cfg) for name, cfg in CONFIGS]:
         drop_tuning(w)
         bams.append(os.path.join(d, f"head_{device}_{name}.bam"))
         fc_aln(w, head, bams[-1], device, **cfg)
@@ -1264,7 +1333,7 @@ def chrom_phase(tmp, dev, launches):
                                          f"first {n_head} reads, cpu vs {b}")
     log(f"chromosome world, first {n_head} reads: {out['parity_records']} "
         "BAM records identical between the plain CPU path and the card in "
-        f"{', '.join(n for n, _ in BENCH_CONFIGS)}")
+        f"{', '.join(n for n, _ in CONFIGS)}")
 
     srt = os.path.join(d, "aln.sorted.bam")
     sort_bam(aln, srt)
@@ -1378,6 +1447,7 @@ def genome_phase(tmp, dev, launches):
         f"{LAUNCH_SHAPES['genome']}")
     out["prof"] = {k: round(v, 4) for k, v in sorted(p.items())}
     log("genome world fc_aln split host timers (s): " + split_line(p))
+    out["ops"] = graphs_vs_ops(w, d, dev, launches, "genome", eng, aln)
     if cuda:
         out["profiled"] = profiled_phase(w, d, dev, "genome")
     if out["fallback"] > MAX_FALLBACK * hit:
@@ -1388,7 +1458,7 @@ def genome_phase(tmp, dev, launches):
     n_head = world.head_signal(w["signal"], head, N_GENOME_PARITY)
     bams = []
     for device, name, cfg in [("cpu", "default", {})] + [
-            (dev.type, name, cfg) for name, cfg in BENCH_CONFIGS]:
+            (dev.type, name, cfg) for name, cfg in CONFIGS]:
         drop_tuning(w)
         bams.append(os.path.join(d, f"head_{device}_{name}.bam"))
         fc_aln(w, head, bams[-1], device, **cfg)
@@ -1407,7 +1477,7 @@ def genome_phase(tmp, dev, launches):
     out["e_levels"] = [14, aidx.first_level_bases]
     log(f"genome world, first {n_head} reads: (a) {out['a_records']} BAM "
         f"records identical between the plain CPU path and the card in "
-        f"{', '.join(n for n, _ in BENCH_CONFIGS)}; (e) {out['e_records']} "
+        f"{', '.join(n for n, _ in CONFIGS)}; (e) {out['e_records']} "
         "identical on the card at "
         f"first levels 14 and {aidx.first_level_bases}")
 
@@ -1503,7 +1573,7 @@ def main():
         world.head_signal(w["signal"], fq16, N_BAM_PARITY)
         cpu_bam = os.path.join(tmp, "head_cpu.bam")
         fc_aln(w, fq16, cpu_bam, "cpu")
-        for name, cfg in BENCH_CONFIGS:
+        for name, cfg in CONFIGS:
             gpu_bam = os.path.join(tmp, f"head_{name}.bam")
             fc_aln(w, fq16, gpu_bam, "cuda", **cfg)
             n_rec = same_bam(cpu_bam, gpu_bam, f"first {N_BAM_PARITY} reads, "
@@ -1511,7 +1581,7 @@ def main():
         secs["parity_bam"] = time.perf_counter() - t
         log(f"first {N_BAM_PARITY} reads: {n_rec} BAM records identical "
             f"between the plain CPU path and the card in "
-            f"{', '.join(n for n, _ in BENCH_CONFIGS)} "
+            f"{', '.join(n for n, _ in CONFIGS)} "
             f"({secs['parity_bam']:.1f} s)")
 
         t = time.perf_counter()

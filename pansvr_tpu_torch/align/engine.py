@@ -331,6 +331,9 @@ class AlignEngine:
             if graphs and self.mesh is not None else None
         # the DP graphs' read-code input, one buffer per codes length
         self._codes_bufs: dict[int, torch.Tensor] = {}
+        # the distinct static shape sets the engine keyed, front and DP
+        # apart: the keys of its graphs, counted op by op too
+        self.shape_sets: dict[str, set] = {"front": set(), "dp": set()}
         self._emit_ctx = None
         self._emit_pe = None
 
@@ -376,6 +379,14 @@ class AlignEngine:
         self._emit_ctx = emit_ctx
         self._emit_pe = PEScorer(self.host, emit_ctx.max_isize,
                                  emit_ctx.min_isize, emit_ctx.normal_read_len)
+
+    def _keyed(self, key: tuple) -> tuple:
+        """A program's key (its kind first), counted among the shape sets
+        (prof n_front_shape_sets, n_dp_shape_sets)."""
+        sets = self.shape_sets[key[0]]
+        sets.add(key)
+        self.prof[f"n_{key[0]}_shape_sets"] = len(sets)
+        return key
 
     # ---- host <-> device ----------------------------------------------
     def _upload(self, a: np.ndarray) -> torch.Tensor:
@@ -717,13 +728,13 @@ class AlignEngine:
         """front_program on the batch's host arrays: uploaded and enqueued
         op by op, or copied into the inputs of the shape set's CUDA graph
         and replayed (its outputs are the graph's: see _dispatch_front)."""
+        key = self._keyed(("front", *(shapes[k] for k in FRONT_SHAPES)))
         if self._programs is None:
             return front_program(
                 self.didx, {k: self._upload(v) for k, v in host.items()},
                 shapes)
         return self._programs.run(
-            ("front", *(shapes[k] for k in FRONT_SHAPES)),
-            functools.partial(front_program, self.didx, shapes=shapes),
+            key, functools.partial(front_program, self.didx, shapes=shapes),
             self._pinned(host))
 
     def _mesh_front(self, prep, shapes: dict):
@@ -748,12 +759,12 @@ class AlignEngine:
             part = {k: v[lo:hi] for k, v in host.items()}
             fn = functools.partial(front_program, self._replicas[dev],
                                    shapes=shapes, codes=False)
+            ekey = self._keyed(("front", e, hi - lo, *key))
             with device_guard(dev):
                 if self._mesh_programs is None:
                     out = fn({k: upload(v, dev) for k, v in part.items()})
                 else:
-                    out = self._mesh_programs[dev].run(
-                        ("front", e, hi - lo, *key), fn, part)
+                    out = self._mesh_programs[dev].run(ekey, fn, part)
                 ch, es, is_str, _, _ = front_parts(out)
                 self._to_host(ch, chain)
                 if keep:
@@ -1110,11 +1121,11 @@ class AlignEngine:
                                cq=cq, ct=ct, W=W, size=size,
                                params=self.dp_params,
                                tru_len=self._tru_ref_len)
+        key = self._keyed(("dp", codes.shape[0], cq, ct, W, size))
         if self._programs is None:
             return fn(meta)
         return self._programs.run(
-            ("dp", codes.shape[0], cq, ct, W, size),
-            lambda inputs: fn(inputs["meta"]), {"meta": meta},
+            key, lambda inputs: fn(inputs["meta"]), {"meta": meta},
             fixed=(codes, self.didx.ref_words))
 
     def _mesh_dp(self, filled, n: int, W: int, k: int, host: dict) -> None:
@@ -1129,10 +1140,10 @@ class AlignEngine:
         fn = functools.partial(dp_slice_program, params=self.dp_params, W=W)
         for e, (dev, lo, hi) in enumerate(row_shards(len(chunk["ql"]),
                                                      self.mesh)):
+            key = self._keyed(("dp", e, cq, ct, W, hi - lo))
             with device_guard(dev):
                 out = self._mesh_programs[dev].run(
-                    ("dp", e, cq, ct, W, hi - lo), fn,
-                    {name: a[lo:hi] for name, a in chunk.items()})
+                    key, fn, {name: a[lo:hi] for name, a in chunk.items()})
                 rows = max(min(hi, n) - lo, 0)
                 self._to_host({f"ops{k}": out["ops"][:rows],
                                f"packed{k}": out["packed"]}, host)
@@ -1194,6 +1205,8 @@ class AlignEngine:
                                    W, size)
                 ops, packed = res["ops"], res["packed"]
             else:
+                for e, (_, lo, hi) in enumerate(row_shards(size, self.mesh)):
+                    self._keyed(("dp", e, cq, ct, W, hi - lo))
                 ops, packed = dp_chunk_sharded(
                     self.mesh, *gb.fill_dp(mem, cq, ct, size),
                     self.dp_params, W)

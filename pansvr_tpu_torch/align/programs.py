@@ -293,7 +293,8 @@ class ProgramCache:
     _capture and _replay. Counts in `prof`: n_graph_capture,
     graph_capture_s (the captures with their warm-ups; graph_warmup_s of
     it the warm-ups), n_graph_replay, graph_replay_s (the host's time in
-    the replays), n_graph_evict."""
+    the replays), n_graph_evict, n_graph_held_max (the most programs the
+    cache held at once)."""
 
     def __init__(self, device, prof: dict, max_programs: int = MAX_GRAPHS):
         self.device = torch.device(device)
@@ -348,6 +349,9 @@ class ProgramCache:
             p.inputs[k].copy_(x, non_blocking=True)
         p.handle, p.out, p.launches = self._capture(fn, p.inputs)
         self._progs[key] = p
+        self.prof["n_graph_held_max"] = max(self.prof["n_graph_held_max"],
+                                            min(len(self._progs),
+                                                self.max_programs))
         if len(self._progs) > self.max_programs:
             self._progs.popitem(last=False)
             self.prof["n_graph_evict"] += 1
@@ -368,8 +372,9 @@ class GraphCache(ProgramCache):
     (kernel build, lazy module loads, the allocator's blocks), then the
     capture on the same stream into the cache's shared memory pool, in
     the "global" capture mode (any call that is unsafe under capture, in
-    any thread, fails it); a replay runs on the current stream. A failed
-    capture or replay raises."""
+    any thread, fails it), the cached blocks the warm-up left released
+    in between; a replay runs on the current stream. A failed capture or
+    replay raises."""
 
     def __init__(self, device, prof: dict, max_programs: int = MAX_GRAPHS):
         super().__init__(device, prof, max_programs)
@@ -392,6 +397,11 @@ class GraphCache(ProgramCache):
             with extd2_cuda.record_launches():
                 fn(inputs)
             self.prof["graph_warmup_s"] += time.perf_counter() - t
+            # the warm-up's blocks stay cached for the side stream, where
+            # only later warm-ups would reuse them: released before the
+            # capture, so the pool's temporaries do not come on top of
+            # them, and nothing of the warm-up stays reserved after it
+            torch.cuda.empty_cache()
             graph = torch.cuda.CUDAGraph()
             with extd2_cuda.record_launches() as launches:
                 graph.capture_begin(pool=self._pool,

@@ -3,8 +3,9 @@ process a stage (the port's counterpart of tools/chrom_scale_run.py).
 
     python -m pansvr_tpu_torch.scale_run --out DIR [--world chrom|genome]
         [--pairs N] [--svs N] [--first-level FL] [--sv-shards N]
-        [--stages gen,anchor,index,signal,aln,sort,sv,sv_inline,parity,compare]
-        [--device cuda|cpu]
+        [--stages gen,anchor,index,signal,aln,aln_ops,aln_cards,sort,sv,
+                  sv_inline,parity,compare]
+        [--device cuda|cpu] [--cards N] [--share-card]
 
 --world chrom (the default) is world.build_chrom_world's recipe (seed
 99, 2,000 DEL/INS/DUP SVs on chr1 60 Mbp + chr2 40 Mbp, error 0.01,
@@ -23,17 +24,38 @@ of the stage: RUSAGE_CHILDREN of a wrapper around it):
              first level, k-mers and unitigs
   signal     fc_signal sim.bam -o signal.fq -s status.sam -U -D
   aln        fc_aln rdbg signal.fq header.sam -o aln.bam -b 8192
-             -r status.sam --device D; adds the reads and reads/s of the
-             pass (and of the pass without the engine's index upload),
-             the engine's counters and phase timers, the front's
-             share of the pass (host_submit, sync_chain), the host
-             fallback share of the reads with a k-mer hit, peak GPU
-             memory, the device index's bytes by tensor, the seconds and
-             the peak-RSS step of one to_device of the index before the
-             pass, K1/K2 launches by (kernel, Tmax, W, problems) with each
-             shape's kernel time alone on its last launch's inputs and
-             bound (ops/kernel_bounds.pass_table), and the
-             engine_tune.json the run left
+             -r status.sam --device D with the engine's defaults (on a
+             card a CUDA graph a batch's front + chain + collect and one a
+             DP chunk, CONFIGS[0]), from the default lane budgets (the
+             index's engine_tune.json removed first); adds the reads and
+             reads/s of the pass (and of the pass without the engine's
+             index upload), the engine's counters and phase timers, the
+             front's share of the pass (host_submit, sync_chain), the host
+             fallback share of the reads with a k-mer hit, the graph
+             counters (captures, warm-ups, replays, evictions, the most
+             held at once) and the distinct shape sets the pass keyed,
+             front and DP apart, peak GPU memory allocated and reserved
+             during the pass, the device index's bytes by tensor, the
+             seconds and the peak-RSS step of one to_device of the index
+             before the pass, K1/K2 launches by (kernel, Tmax, W,
+             problems) with each shape's kernel time alone on its last
+             launch's inputs and bound (ops/kernel_bounds.pass_table), and
+             the engine_tune.json the run left
+  aln_ops    the same pass op by op (EngineConfig(fuse_chain=False),
+             OPS_CONFIG) -> aln_ops.bam, with the same report (no to_device
+             of its own); compare (f) holds its records to aln.bam's
+  aln_cards  fc_aln over --cards N: the fan-out (parallel.aln_shard.
+             run_aln_fanout, N worker processes, each pinned to its card
+             by CUDA_VISIBLE_DEVICES={shard}) -> aln_fanout.bam, then the
+             data-mesh engine over make_data_mesh(N) with its CUDA graphs
+             -> aln_mesh.bam, both over the whole signal FASTQ; each one's
+             BAM records must equal aln.bam's. Records reads/s, the
+             fan-out's split / worker / merge seconds and the mesh
+             engine's phase timers and graph counters. Raises when fewer
+             than N cards are visible; --share-card runs the N workers
+             and the N mesh entries all on the first card (host overlap,
+             not scaling: the report says which). On the CPU, N workers
+             with --device cpu and a mesh of N CPU entries
   sort       io.bai.sort_bam + build_bai: aln.sorted.bam (+ .bai)
   sv         fc_sv over every SV region through the region fan-out
              (parallel.fanout.run_sv_fanout, --sv-shards worker processes,
@@ -47,9 +69,10 @@ of the stage: RUSAGE_CHILDREN of a wrapper around it):
   sv_inline  the inline shard with the inline native DP
              (ContigDpBatcher(INLINE)) -> result_inline.vcf
   parity     (a) the first 16,384 signal reads: fc_aln
-             --device cpu and --device D in both engine configurations
-             (depth 3 with device collect, depth 1 with host collect) give
-             identical BAM records; (b) the first 1,024 reads: the engine
+             --device cpu and --device D in the three engine
+             configurations (CONFIGS: depth 3 with device collect and
+             depth 1 with host collect, both with CUDA graphs on a card,
+             and depth 3 op by op) give identical BAM records; (b) the first 1,024 reads: the engine
              on D equals its HostAligner field by field; (e) at a fixed
              first level, the same reads on D over an index of the same
              anchors at the auto first level give (a)'s BAM records; on a
@@ -63,7 +86,8 @@ of the stage: RUSAGE_CHILDREN of a wrapper around it):
              result_shard.vcf's; F1 of result.vcf against the planted SVs
              (svs.vcf, io.vcf_compare at its defaults), all records and
              PASS only, and on the shard's chromosomes for the card and
-             the JAX package
+             the JAX package; (f) if aln_ops.bam is there, its records
+             equal aln.bam's over the whole pass
 
 fc_aln and fc_sv run their subcommand's function on the subcommand's
 argv (cli.main.parse_args, run_fc_aln / run_fc_sv) in a child that then
@@ -76,6 +100,7 @@ repository's files (the repository's .gitignore lists scale_out/).
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import subprocess
@@ -84,8 +109,8 @@ import time
 
 from . import world
 
-STAGES = ("gen", "anchor", "index", "signal", "aln", "sort", "sv",
-          "sv_inline", "parity", "compare")
+STAGES = ("gen", "anchor", "index", "signal", "aln", "aln_ops", "aln_cards",
+          "sort", "sv", "sv_inline", "parity", "compare")
 # each world's recipe, read pairs, index first level and the number of
 # chromosome shards whose first the inline DP and the JAX fc_sv run over
 WORLDS = dict(
@@ -97,9 +122,19 @@ BATCH = 8192               # fc_aln -b, as tools/chrom_scale_run.py's run
 N_BAM_PARITY = 16_384
 N_HOST_PARITY = 1024
 MAX_FALLBACK = 0.05        # host fallback share of the reads with a hit
-# (name, EngineConfig fields) of the card's engine configurations
+# (name, EngineConfig fields) of the card's engine configurations: two
+# with the per-batch CUDA graphs (fuse_chain, the default), and the first
+# of them op by op (OPS_CONFIG)
 CONFIGS = (("depth3_device_collect", dict(stream_depth=3, collect="auto")),
-           ("depth1_host_collect", dict(stream_depth=1, collect="host")))
+           ("depth1_host_collect", dict(stream_depth=1, collect="host")),
+           ("depth3_device_collect_ops", dict(stream_depth=3, collect="auto",
+                                              fuse_chain=False)))
+OPS_CONFIG = CONFIGS[2]
+# the graph counters of an fc_aln pass's report (ProgramCache's prof)
+GRAPH_COUNTERS = ("n_graph_capture", "graph_capture_s", "graph_warmup_s",
+                  "n_graph_replay", "graph_replay_s", "n_graph_evict",
+                  "n_graph_held_max", "n_front_shape_sets",
+                  "n_dp_shape_sets")
 
 # runs argv, then writes the peak RSS (KiB) of the processes it waited
 # for into the file argv[1] and exits with argv's exit code
@@ -116,7 +151,9 @@ def paths(out_dir: str) -> dict:
     """The world's files (world.chrom_paths) and the stages' outputs."""
     return dict(world.chrom_paths(out_dir), **{
         k: os.path.join(out_dir, f) for k, f in (
-            ("aln", "aln.bam"), ("sorted", "aln.sorted.bam"),
+            ("aln", "aln.bam"), ("aln_ops", "aln_ops.bam"),
+            ("aln_fanout", "aln_fanout.bam"), ("aln_mesh", "aln_mesh.bam"),
+            ("sorted", "aln.sorted.bam"),
             ("vcf_card", "result.vcf"), ("vcf_shard", "result_shard.vcf"),
             ("vcf_inline", "result_inline.vcf"),
             ("vcf_jax", "result_jax.vcf"), ("report", "report.json"),
@@ -191,9 +228,9 @@ def _stage_argv(stage: str, p: dict, a) -> tuple[list[str], str | None]:
 def _option_argv(a) -> list[str]:
     """The options of a run, as a child stage takes them."""
     out = ["--out", a.out, "--device", a.device, "--world", a.world]
-    for k in ("pairs", "svs", "first_level", "sv_shards"):
+    for k in ("pairs", "svs", "first_level", "sv_shards", "cards"):
         out += ["--" + k.replace("_", "-"), str(getattr(a, k))]
-    return out
+    return out + ["--share-card"] * bool(a.share_card)
 
 
 def recipe(a) -> dict:
@@ -219,13 +256,17 @@ def _peak_rss_gib() -> float:
     return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20
 
 
-def _gpu_peak_mib(dev) -> float | None:
+def _gpu_peak_mib(dev, reserved: bool = False) -> float | None:
+    """Peak GPU memory allocated (or reserved by the caching allocator,
+    graph pools included) on dev since the last reset, MiB."""
     import torch
 
     if dev.type != "cuda":
         return None
     torch.cuda.synchronize(dev)
-    return torch.cuda.max_memory_allocated(dev) / 2**20
+    peak = torch.cuda.max_memory_reserved if reserved \
+        else torch.cuda.max_memory_allocated
+    return peak(dev) / 2**20
 
 
 def _reset_gpu_peak(device: str):
@@ -302,30 +343,119 @@ def _time_to_device(index_dir: str, dev) -> dict:
     return out
 
 
-def _child_aln(p: dict, a) -> dict:
-    steps = {"start": _rss_now()}
+def _drop_tuning(index_dir: str) -> None:
+    """Remove the engine_tune.json an earlier fc_aln left in the index,
+    so that a pass starts from the default lane budgets."""
+    tune = os.path.join(index_dir, "engine_tune.json")
+    if os.path.exists(tune):
+        os.remove(tune)
+
+
+def graph_report(eng) -> dict:
+    """The graph counters and shape sets of an engine's pass (0 where
+    nothing fired; the keys of every shape set, for the one that churns)."""
+    out = {k: float(eng.prof.get(k, 0.0)) for k in GRAPH_COUNTERS}
+    out["shape_set_keys"] = {kind: sorted(map(list, keys))
+                             for kind, keys in eng.shape_sets.items()}
+    return out
+
+
+def same_records(path_a: str, path_b: str, what: str) -> int:
+    """The raw BAM record bodies of two files, compared one by one as
+    they stream: their count, or AssertionError at the first that
+    differs (an empty file fails too)."""
+    from itertools import zip_longest
+
+    from .io.bam import BamReader
+
+    n = 0
+    for x, y in zip_longest(BamReader(path_a).iter_bodies(),
+                            BamReader(path_b).iter_bodies()):
+        if x != y:
+            raise AssertionError(f"{what}: BAM record {n} differs "
+                                 f"({path_a} vs {path_b})")
+        n += 1
+    if not n:
+        raise AssertionError(f"{what}: no BAM records")
+    return n
+
+
+class ReservedSampler:
+    """Samples the caching allocator's reserved bytes on a card every
+    `period` seconds in a thread (allocator statistics only: no CUDA call,
+    so a graph capture in the main thread is not disturbed). .samples:
+    [(seconds since start, MiB)]."""
+
+    def __init__(self, dev, period: float = 2.0):
+        import threading
+
+        self.index = dev.index if dev.index is not None else 0
+        self.period = period
+        self.samples: list = []
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._loop, daemon=True)
+
+    def _loop(self):
+        import torch
+
+        t0 = time.perf_counter()
+        while True:
+            self.samples.append((
+                round(time.perf_counter() - t0, 3),
+                torch.cuda.memory_stats(self.index).get(
+                    "reserved_bytes.all.current", 0) / 2**20))
+            if self._stop.wait(self.period):
+                return
+
+    def __enter__(self):
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+
+
+def reserved_by_pool(dev) -> dict:
+    """The card's reserved memory now (MiB) by the caching allocator's
+    pool and stream: "graph pool <id>" for a CUDA graph pool, "stream
+    <handle>" for the ordinary blocks of each stream."""
     import torch
 
+    out: dict = {}
+    for seg in torch.cuda.memory_snapshot():
+        if seg["device"] != dev.index:
+            continue
+        pool = tuple(seg.get("segment_pool_id", (0, 0)))
+        key = f"graph pool {pool}" if any(pool) \
+            else f"stream {seg['stream']}"
+        out[key] = out.get(key, 0.0) + seg["total_size"] / 2**20
+    return out
+
+
+def _aln_pass(p: dict, a, config: tuple, out_bam: str, steps: dict) -> dict:
+    """One fc_aln pass over the whole signal FASTQ in the engine
+    configuration `config` (name, EngineConfig fields), from the default
+    lane budgets, with the kernel launches, GPU peaks and graph counters
+    of the pass alone."""
+    import torch
+
+    from .align.engine import EngineConfig
     from .cli.main import parse_args, run_fc_aln
     from .ops import extd2_cuda as ec
 
-    steps["torch_imported"] = _rss_now()
     dev = _reset_gpu_peak(a.device)
-    steps["device_ready"] = _rss_now()
-    if dev.type == "cuda":
-        from ._build import load_kernels
-
-        load_kernels()
-    steps["kernels_loaded"] = _rss_now()
-    todev = _time_to_device(p["index"], dev)
-    steps["to_device_done"] = _rss_now()
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
     args = parse_args(["fc_aln", p["index"], p["signal"], p["header"], "-o",
-                       p["aln"], "-b", str(BATCH), "-r", p["status"],
+                       out_bam, "-b", str(BATCH), "-r", p["status"],
                        "--device", a.device])
+    _drop_tuning(p["index"])
     ec.reset_launches()
-    with ec.keep_samples() as samples:
+    sampler = ReservedSampler(dev) if dev.type == "cuda" else None
+    with ec.keep_samples() as samples, sampler or contextlib.nullcontext():
         t = time.perf_counter()
-        eng = run_fc_aln(args)
+        eng = run_fc_aln(args, config=EngineConfig(**config[1]))
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         pass_s = time.perf_counter() - t
@@ -340,6 +470,7 @@ def _child_aln(p: dict, a) -> dict:
     with open(os.path.join(p["index"], "engine_tune.json")) as fh:
         tune = json.load(fh)
     return dict(
+        config=config[0], fuse_chain=eng.cfg.fuse_chain,
         pass_s=pass_s, reads=int(prof["n_reads"]),
         reads_per_s=prof["n_reads"] / pass_s, prof=prof,
         stream_reads_per_s=prof["n_reads"] / (pass_s
@@ -347,13 +478,115 @@ def _child_aln(p: dict, a) -> dict:
         front_share={k: prof.get(k, 0.0) / pass_s
                      for k in ("host_submit", "sync_chain")},
         fallback_share=prof["n_fallback"] / hit,
+        graphs=graph_report(eng),
         gpu_peak_mib=_gpu_peak_mib(dev),
+        gpu_reserved_mib=_gpu_peak_mib(dev, reserved=True),
+        reserved_samples_mib=sampler.samples if sampler else None,
+        reserved_by_pool_mib=reserved_by_pool(dev) if sampler else None,
         device_index_bytes=sum(by_tensor.values()),
-        device_index_bytes_by_tensor=by_tensor, to_device=todev,
+        device_index_bytes_by_tensor=by_tensor,
         index=dict(n_kmer_padded=didx.n_kmer, n_uni_padded=didx.n_uni,
                    first_level=didx.first_level_bases),
         launches=dict(ec.LAUNCHES), kernels=_kernel_table(samples),
         engine_tune=tune, rss_steps=dict(steps, end=_rss_now()))
+
+
+def _child_aln(p: dict, a) -> dict:
+    steps = {"start": _rss_now()}
+    import torch  # noqa: F401
+
+    steps["torch_imported"] = _rss_now()
+    dev = _reset_gpu_peak(a.device)
+    steps["device_ready"] = _rss_now()
+    if dev.type == "cuda":
+        from ._build import load_kernels
+
+        load_kernels()
+    steps["kernels_loaded"] = _rss_now()
+    todev = _time_to_device(p["index"], dev)
+    steps["to_device_done"] = _rss_now()
+    return dict(_aln_pass(p, a, CONFIGS[0], p["aln"], steps),
+                to_device=todev)
+
+
+def _child_aln_ops(p: dict, a) -> dict:
+    return _aln_pass(p, a, OPS_CONFIG, p["aln_ops"], {"start": _rss_now()})
+
+
+def card_mesh(a) -> tuple[list, dict | None, str]:
+    """(the data mesh, the fan-out's worker_env, what the stage measures)
+    of --cards N on a.device. Raises when fewer than N cards are visible
+    (make_data_mesh would quietly return the ones there are), unless
+    --share-card puts every entry and worker on the first card."""
+    import torch
+
+    from .index.device import resolve_device
+    from .parallel.mesh import make_data_mesh
+
+    n = a.cards
+    dev = resolve_device(a.device)
+    if dev.type != "cuda":
+        return make_data_mesh(n, dev), None, f"{n} {dev.type} entries"
+    if a.share_card:
+        return [torch.device("cuda", 0)] * n, None, \
+            f"host overlap: {n} workers and {n} mesh entries on one card"
+    have = torch.cuda.device_count()
+    if have < n:
+        raise RuntimeError(f"aln_cards: --cards {n} asks for {n} cards, "
+                           f"{have} visible (--share-card runs them all on "
+                           "the first card)")
+    return make_data_mesh(n), {"CUDA_VISIBLE_DEVICES": "{shard}"}, \
+        f"{n} cards"
+
+
+def _child_aln_cards(p: dict, a) -> dict:
+    """The fan-out and the data mesh over --cards N, each over the whole
+    signal FASTQ, each held to aln.bam's records."""
+    import torch
+
+    from .align.engine import EngineConfig
+    from .cli.main import parse_args, run_fc_aln
+    from .parallel.aln_shard import run_aln_fanout
+
+    mesh, worker_env, measures = card_mesh(a)
+    _drop_tuning(p["index"])
+    split = {}
+    t = time.perf_counter()
+    run_aln_fanout(p["index"], p["signal"], p["header"], p["aln_fanout"],
+                   a.cards, status_file=p["status"], batch=BATCH,
+                   worker_env=worker_env, device=a.device, prof=split)
+    fan_s = time.perf_counter() - t
+    fan_records = same_records(p["aln"], p["aln_fanout"], "aln_cards fan-out")
+
+    cards = list(dict.fromkeys(d for d in mesh if d.type == "cuda"))
+    if cards:
+        torch.cuda.init()   # before a call that names a card by its index
+    for d in cards:
+        torch.cuda.reset_peak_memory_stats(d)
+    _drop_tuning(p["index"])
+    t = time.perf_counter()
+    eng = run_fc_aln(parse_args([
+        "fc_aln", p["index"], p["signal"], p["header"], "-o", p["aln_mesh"],
+        "-b", str(BATCH), "-r", p["status"], "--device", a.device]),
+        config=EngineConfig(**CONFIGS[0][1]), mesh=mesh)
+    for d in cards:
+        torch.cuda.synchronize(d)
+    mesh_s = time.perf_counter() - t
+    mesh_records = same_records(p["aln"], p["aln_mesh"], "aln_cards mesh")
+    n_reads = int(eng.prof["n_reads"])
+    return dict(
+        cards=a.cards, share_card=bool(a.share_card), measures=measures,
+        reads=n_reads,
+        fanout=dict(workers=a.cards, wall_s=fan_s,
+                    reads_per_s=n_reads / fan_s, records=fan_records,
+                    **split),
+        mesh=dict(entries=[str(d) for d in mesh], wall_s=mesh_s,
+                  reads_per_s=n_reads / mesh_s, records=mesh_records,
+                  prof={k: float(v) for k, v in sorted(eng.prof.items())},
+                  graphs=graph_report(eng),
+                  gpu_reserved_mib=sum(torch.cuda.max_memory_reserved(d)
+                                       for d in cards) / 2**20
+                  if cards else None))
 
 
 def _child_sort(p: dict, a) -> dict:
@@ -533,7 +766,8 @@ def _f1(truth: list, query: list) -> dict:
 
 
 def _compare(p: dict) -> dict:
-    """(c), (d) and F1 from the VCFs the sv stages wrote."""
+    """(c), (d) and F1 from the VCFs the sv stages wrote; (f) from the
+    BAMs of aln and aln_ops."""
     from .io.vcf_compare import load_calls
 
     fan = world.vcf_body(p["vcf_card"])
@@ -551,6 +785,14 @@ def _compare(p: dict) -> dict:
     if os.path.exists(p["vcf_jax"]):
         out["d_jax_identical"] = shard == world.vcf_body(p["vcf_jax"])
         vcfs["jax"] = p["vcf_jax"]
+    if os.path.exists(p["aln_ops"]):
+        try:
+            out["f_records"] = same_records(p["aln"], p["aln_ops"],
+                                            "compare (f)")
+            out["f_ops_identical"] = True
+        except AssertionError as e:
+            out["f_ops_identical"] = False
+            out["f_error"] = str(e)
     for key, pass_only in (("f1_all", False), ("f1_pass", True)):
         out[key] = _f1(load_calls(p["vcf"], pass_only=pass_only),
                        load_calls(p["vcf_card"], pass_only=pass_only))
@@ -559,7 +801,8 @@ def _compare(p: dict) -> dict:
     return out
 
 
-_CHILDREN = dict(aln=_child_aln, sort=_child_sort, sv=_child_sv,
+_CHILDREN = dict(aln=_child_aln, aln_ops=_child_aln_ops,
+                 aln_cards=_child_aln_cards, sort=_child_sort, sv=_child_sv,
                  sv_inline=_child_sv_inline, parity=_child_parity)
 
 
@@ -584,6 +827,12 @@ def parse_args(argv):
                     help="comma-separated stages to run, in their order")
     ap.add_argument("--device", default="cuda",
                     help="device of fc_aln, fc_sv and parity's engine runs")
+    ap.add_argument("--cards", type=int, default=2,
+                    help="cards of the aln_cards stage: fan-out workers and "
+                         "data-mesh entries (default 2)")
+    ap.add_argument("--share-card", action="store_true",
+                    help="aln_cards: every worker and mesh entry on the "
+                         "first card (host overlap on one card)")
     ap.add_argument("--child", choices=("gen",) + tuple(_CHILDREN),
                     help=argparse.SUPPRESS)
     a = ap.parse_args(argv)
@@ -623,7 +872,8 @@ def main(argv=None) -> int:
         rep = {}
     rep.update(pairs=a.pairs, device=a.device, world_name=a.world,
                world=recipe(a), first_level=a.first_level, batch=BATCH,
-               sv_shards=a.sv_shards)
+               sv_shards=a.sv_shards, cards=a.cards,
+               share_card=bool(a.share_card))
     if a.device.startswith("cuda"):
         rep["card"] = card_line()
     stages = rep.setdefault("stages", {})
@@ -636,10 +886,13 @@ def main(argv=None) -> int:
             _save(rep, p["report"])
             print(f"[scale] compare: {json.dumps(rep['compare'])}",
                   flush=True)
-            if not (rep["compare"]["c_inline_identical"]
-                    and rep["compare"]["c_fanout_identical"]
-                    and rep["compare"].get("d_jax_identical", True)):
+            cmp = rep["compare"]
+            if not (cmp["c_inline_identical"] and cmp["c_fanout_identical"]
+                    and cmp.get("d_jax_identical", True)):
                 print("[scale] compare: the VCF records differ", flush=True)
+                return 1
+            if not cmp.get("f_ops_identical", True):
+                print(f"[scale] compare: {cmp['f_error']}", flush=True)
                 return 1
             continue
         argv, stdout_path = _stage_argv(stage, p, a)
@@ -665,18 +918,36 @@ def main(argv=None) -> int:
         if line["rc"] != 0:
             print(f"[scale] {stage} failed (rc={line['rc']})", flush=True)
             return 1
-        if stage == "aln":
-            print(f"[scale] aln: {line['reads']} reads at "
+        if stage in ("aln", "aln_ops"):
+            g = line["graphs"]
+            print(f"[scale] {stage}: {line['reads']} reads at "
                   f"{line['reads_per_s']:.1f} reads/s "
                   f"({line['stream_reads_per_s']:.1f} after the index "
                   f"upload, {line['prof']['index_upload']:.1f} s); host "
                   f"fallback "
                   f"{line['fallback_share']:.4%} of the reads with a hit; "
-                  f"launches {line['launches']}", flush=True)
+                  f"launches {line['launches']}; CUDA graphs: "
+                  f"{g['n_graph_capture']:.0f} captures in "
+                  f"{g['graph_capture_s']:.3f} s, {g['n_graph_replay']:.0f} "
+                  f"replays, {g['n_graph_evict']:.0f} evicted, at most "
+                  f"{g['n_graph_held_max']:.0f} held; shape sets front "
+                  f"{g['n_front_shape_sets']:.0f}, DP "
+                  f"{g['n_dp_shape_sets']:.0f}; GPU peak "
+                  f"{line['gpu_peak_mib']} MiB allocated, "
+                  f"{line['gpu_reserved_mib']} reserved", flush=True)
             if line["fallback_share"] > MAX_FALLBACK:
                 print(f"[scale] aln: host fallback over {MAX_FALLBACK:.0%}",
                       flush=True)
                 return 1
+        if stage == "aln_cards":
+            fan, mesh = line["fanout"], line["mesh"]
+            print(f"[scale] aln_cards ({line['measures']}): fan-out "
+                  f"{fan['reads_per_s']:.1f} reads/s (split "
+                  f"{fan['split_s']:.1f} s, workers {fan['workers_s']:.1f} s,"
+                  f" merge {fan['merge_s']:.1f} s), mesh "
+                  f"{mesh['reads_per_s']:.1f} reads/s; "
+                  f"{fan['records']} BAM records equal aln.bam's in both",
+                  flush=True)
         if stage == "sv":
             lo, hi = line["shard"]
             print(f"[scale] sv: {line['n_pass']} PASS of {line['regions']} "

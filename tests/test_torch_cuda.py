@@ -700,6 +700,105 @@ def test_dp_graph_with_k2_over_48k_matches_eager(cuda_device):
 
 
 @pytest.mark.cuda
+def test_graphs_capture_widening_and_retry_mid_stream(cuda_device):
+    """A depth-3 stream whose last batches overflow the flat lane pool of
+    nf_mult 1 after earlier batches replayed their graphs (and compacted):
+    the engine widens and retries those batches mid-stream, capturing the
+    new front shape sets while earlier downloads are in flight, without
+    error; one capture a shape set, none evicted; its BAM records equal
+    fuse_chain=False's, which keys the same shape sets."""
+    from pansvr_tpu_torch.align.bam_out import EmitContext
+    from pansvr_tpu_torch.align.engine import AlignEngine, EngineConfig
+    from pansvr_tpu_torch.align.host_align import OriResult
+    from pansvr_tpu_torch.anchor.builder import AnchorConfig, build_anchor_contigs
+    from pansvr_tpu_torch.index.builder import build_index
+    from pansvr_tpu_torch.io.bam import BamHeader
+    from pansvr_tpu_torch.utils.simulate import DictGenome, make_dataset
+
+    kw = dict(seed=41, n_sv=5, types=("DEL", "INS"),
+              chrom_lengths={"chr1": 300_000}, err_rate=0.02)
+    uni = make_dataset(n_pairs=1800, sv_region_reads=False, **kw)
+    hot = make_dataset(n_pairs=150, **kw)
+    contigs = list(build_anchor_contigs(
+        uni.vcf_records, DictGenome(uni.genome), AnchorConfig()))
+    idx = build_index([(c.name, c.seq) for c in contigs],
+                      first_level_bases=11)
+    seqs = [s for r in uni.reads for s in (r.seq1, r.seq2)] \
+        + [s for r in hot.reads for s in (r.seq1, r.seq2)]
+    batches = []
+    for b0 in range(0, len(seqs), 300):
+        x = seqs[b0 : b0 + 300]
+        batches.append((x, [OriResult(unmapped=True)] * len(x),
+                        ([f"r{(b0 + i) // 2}" for i in range(len(x))],
+                         ["I" * len(y) for y in x], [""] * len(x))))
+    names = list(uni.genome)
+    lens = [len(x) for x in uni.genome.values()]
+    got = {}
+    for fuse in (True, False):
+        eng = AlignEngine(idx, ori_chrom_names=names, device=cuda_device,
+                          config=EngineConfig(nf_mult=1, stream_depth=3,
+                                              fuse_chain=fuse))
+        eng.set_native_emit(EmitContext(eng.host, BamHeader(
+            text="@HD\tVN:1.6\n", ref_names=names, ref_lens=lens),
+            max_isize=600, min_isize=200, normal_read_len=150))
+        got[fuse] = (list(eng.align_stream(iter(batches))), eng)
+    (recs, g), (want, o) = got[True], got[False]
+    assert recs == want and sum(map(len, recs)) > 10_000
+    p = g.prof
+    assert p["n_widen"] >= 1 and p["n_retry"] >= 1 and p["n_compacted"] > 0
+    assert g.shape_sets == o.shape_sets
+    nf = {k[7] for k in g.shape_sets["front"]}
+    assert len(nf) >= 2, g.shape_sets["front"]      # a widening's new keys
+    n_sets = len(g.shape_sets["front"]) + len(g.shape_sets["dp"])
+    assert p["n_graph_capture"] == n_sets and not p["n_graph_evict"]
+    assert p["n_graph_replay"] > p["n_graph_capture"]
+    for k in ("n_batches", "n_widen", "n_retry", "n_compacted", "n_rechain",
+              "n_fallback", "n_dp_chunks"):
+        assert p[k] == o.prof[k], k
+
+
+@pytest.mark.cuda
+def test_capture_reserves_the_warm_up_temporaries_once(cuda_device):
+    """A capture's eager warm-up allocates the program's temporaries (at
+    least 128 MiB here) on the cache's side stream, the capture the same
+    in the graph pool. The warm-up's blocks are released before the capture:
+    the capture reserves the temporaries once at its peak (not warm-up
+    and pool together), and after it no block of the side stream stays
+    reserved outside the pool."""
+    from collections import defaultdict
+
+    from pansvr_tpu_torch.align.programs import GraphCache
+
+    cache = GraphCache(cuda_device, defaultdict(float))
+    x = (torch.arange(1 << 20, device=cuda_device) % 1000).to(torch.int32)
+
+    def prog(inputs):
+        big = inputs["x"].repeat(32)            # 128 MiB and more
+        return {"y": big.view(32, -1).sum(0)}
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_reserved()
+    torch.cuda.reset_peak_memory_stats()
+    out = cache.run(("big",), prog, {"x": x})
+    torch.cuda.synchronize()
+    assert torch.equal(out["y"], x.to(torch.int64) * 32)
+    segs = torch.cuda.memory_snapshot()
+    pool = sum(s["total_size"] for s in segs
+               if any(s.get("segment_pool_id", (0, 0))))
+    side = cache._stream.cuda_stream
+    left = [(s["total_size"], s["allocated_size"]) for s in segs
+            if s["stream"] == side and not any(s.get("segment_pool_id",
+                                                     (0, 0)))]
+    peak = torch.cuda.max_memory_reserved() - base
+    assert pool >= 128 << 20, (pool, segs)
+    assert sum(t for t, _ in left) < 32 << 20, left
+    # the capture's peak is its pool (the temporaries once) and the
+    # inputs, not the warm-up's blocks beside the pool
+    assert peak < pool + (64 << 20), (peak >> 20, pool >> 20)
+
+
+@pytest.mark.cuda
 def test_failed_capture_raises(cuda_device):
     """A program that reads a device value back cannot be captured: the
     cache raises and keeps no graph (the engine has no op-by-op

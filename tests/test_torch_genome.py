@@ -284,6 +284,18 @@ def test_scale_run_genome_on_cpu(scaled):
     assert _bytes(out / "result.vcf") == _bytes(single)
 
 
+def test_scale_run_genome_aln_ops_and_cards(scaled):
+    """The genome world's aln_ops and aln_cards on the CPU: the op-by-op
+    pass, the fan-out over two workers and the mesh of two CPU entries
+    give aln.bam's records (test_torch_scale.check_aln_ops_and_cards)."""
+    from test_torch_scale import check_aln_ops_and_cards
+
+    out, rc, rep = scaled
+    assert rc == 0
+    assert rep["stages"]["aln_ops"]["index"]["first_level"] == LEVEL
+    check_aln_ops_and_cards(rep, out)
+
+
 def test_scale_run_genome_matches_jax(scaled):
     """The JAX package's fc_aln (the CLI, JAX on the CPU) on the same
     index writes scale_run's BAM records, and its fc_sv over the inline

@@ -278,6 +278,42 @@ def test_engine_through_replay_emulator_matches_jax(churn_world, depth):
     assert sum(map(len, got)) > 10_000
 
 
+def test_stream_keys_one_capture_a_shape_set_as_op_by_op(churn_world):
+    """The churn stream (re-chain, compaction, widenings with batch
+    retries mid-stream) at depth 3 through the replay emulator and op by
+    op: both key the same front and DP shape sets, in the same order;
+    with the emulator each is captured once, none is evicted, and the
+    most held at once is their count. The stream's own counters say how
+    many of each it keyed."""
+    idx, names, lens, batches, want = churn_world
+    cfg = dict(nf_mult=1, stream_depth=3, read_classes=(256, 1600))
+    engines = {}
+    for graphs in (True, False):
+        eng = AlignEngine(idx, ori_chrom_names=names, device="cpu",
+                          config=EngineConfig(**cfg))
+        if graphs:
+            eng._programs = ReplayEmulator(eng.device, eng.prof)
+        eng.set_native_emit(EmitContext(eng.host, BamHeader(
+            text="@HD\tVN:1.6\n", ref_names=names, ref_lens=lens),
+            max_isize=600, min_isize=200, normal_read_len=150))
+        assert list(eng.align_stream(iter(batches))) == want
+        engines[graphs] = eng
+    g, o = engines[True], engines[False]
+    assert g.shape_sets == o.shape_sets
+    n_front, n_dp = (len(g.shape_sets[k]) for k in ("front", "dp"))
+    p = g.prof
+    assert p["n_widen"] >= 2 and p["n_retry"] >= 2 and p["n_compacted"] > 0
+    assert n_front >= 4 and n_dp >= 3
+    assert (p["n_front_shape_sets"], p["n_dp_shape_sets"]) == (n_front, n_dp)
+    assert (o.prof["n_front_shape_sets"], o.prof["n_dp_shape_sets"]) == \
+        (n_front, n_dp)
+    assert p["n_graph_capture"] == n_front + n_dp == len(g._programs)
+    assert p["n_graph_held_max"] == n_front + n_dp
+    assert not p["n_graph_evict"] and not o.prof["n_graph_capture"]
+    assert set(g._programs._progs) == g.shape_sets["front"] | \
+        g.shape_sets["dp"]
+
+
 def test_program_cache_captures_once_per_shape_set(world):
     """One capture per key, replays into the same output tensors, the
     LRU bound, the counters, fixed inputs held to their storage, and the
@@ -312,6 +348,7 @@ def test_program_cache_captures_once_per_shape_set(world):
         cache.run(("b",), prog(2), {"x": x})
         cache.run(("c",), prog(3), {"x": x})
         assert len(cache) == 2 and prof["n_graph_evict"] == 1
+        assert prof["n_graph_held_max"] == 2
         cache.run(("a",), prog(1), {"x": x})     # evicted: captured again
         assert prof["n_graph_capture"] == 4 and len(cache) == 2
 

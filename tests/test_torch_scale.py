@@ -219,13 +219,87 @@ def test_scale_run_stages_on_cpu(chrom, scaled):
     assert rep["stages"]["sv_inline"]["n_pass"] == sv["n_pass"]
     par = rep["stages"]["parity"]
     assert par["a_reads"] == min(scale_run.N_BAM_PARITY, aln["reads"])
-    assert par["a_records"] > 0 and len(par["a_runs"]) == 3
+    assert par["a_records"] > 0
+    assert len(par["a_runs"]) == len(scale_run.CONFIGS) + 1 == 4
     assert par["b_reads"] == scale_run.N_HOST_PARITY
     assert par["b_reads_with_alignments"] > 0
     cmp = rep["compare"]
     assert cmp["c_inline_identical"] and "d_jax_identical" not in cmp
     assert cmp["records"] == 12 and cmp["f1_all"]["truth"] == 12
     assert 0.5 < cmp["f1_all"]["f1"] <= 1.0
+
+
+def check_aln_ops_and_cards(rep, out):
+    """aln_ops and aln_cards of a scale_run report on the CPU: the op-by-op
+    pass keys the shape sets of aln's (both op by op on the CPU, from the
+    default budgets), compare (f) held its records to aln.bam's, and the
+    fan-out's and the mesh's records equal aln.bam's."""
+    aln, ops = rep["stages"]["aln"], rep["stages"]["aln_ops"]
+    assert aln["config"] == scale_run.CONFIGS[0][0] and aln["fuse_chain"]
+    assert ops["config"] == scale_run.OPS_CONFIG[0] and not ops["fuse_chain"]
+    assert ops["rc"] == 0 and ops["reads"] == aln["reads"]
+    assert "to_device" in aln and "to_device" not in ops
+    for line in (aln, ops):
+        g = line["graphs"]
+        assert set(scale_run.GRAPH_COUNTERS) <= set(g)
+        # the CPU keys its shape sets and captures nothing
+        assert g["n_front_shape_sets"] >= 1 and g["n_dp_shape_sets"] >= 1
+        assert g["n_graph_capture"] == g["n_graph_evict"] == 0
+        assert len(g["shape_set_keys"]["front"]) == g["n_front_shape_sets"]
+        assert line["gpu_reserved_mib"] is None
+    assert aln["graphs"]["shape_set_keys"] == ops["graphs"]["shape_set_keys"]
+    n = world.bam_records(str(out / "aln.bam"))
+    assert n and n == world.bam_records(str(out / "aln_ops.bam"))
+    assert rep["compare"]["f_ops_identical"]
+    assert rep["compare"]["f_records"] == len(n)
+    cards = rep["stages"]["aln_cards"]
+    assert cards["rc"] == 0 and cards["cards"] == 2
+    assert not cards["share_card"] and cards["measures"] == "2 cpu entries"
+    assert cards["reads"] == aln["reads"]
+    fan, mesh = cards["fanout"], cards["mesh"]
+    assert fan["workers"] == 2 and fan["records"] == len(n)
+    assert min(fan[k] for k in ("split_s", "workers_s", "merge_s")) > 0
+    assert mesh["entries"] == ["cpu", "cpu"] and mesh["records"] == len(n)
+    assert mesh["prof"]["n_reads"] == aln["reads"]
+    assert mesh["graphs"]["n_front_shape_sets"] >= 2   # one key an entry
+    for f in ("aln_fanout.bam", "aln_mesh.bam"):
+        assert world.bam_records(str(out / f)) == n
+
+
+def test_scale_run_aln_ops_and_cards_on_cpu(scaled):
+    out, rc, rep = scaled
+    assert rc == 0
+    check_aln_ops_and_cards(rep, out)
+
+
+def test_aln_cards_mesh_and_pins(monkeypatch):
+    """--cards N on cards: N distinct cards, the fan-out's workers pinned
+    by CUDA_VISIBLE_DEVICES={shard}; with fewer visible it raises (where
+    make_data_mesh would return the cards there are); --share-card puts
+    every entry and worker on the first card."""
+    from argparse import Namespace
+
+    from pansvr_tpu_torch.parallel.mesh import make_data_mesh
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    cuda = [torch.device("cuda", i) for i in range(4)]
+    for have in (1, 4):
+        monkeypatch.setattr(torch.cuda, "device_count", lambda: have)
+        a = Namespace(cards=2, device="cuda", share_card=False)
+        if have == 1:
+            assert make_data_mesh(2) == cuda[:1]     # quietly short
+            with pytest.raises(RuntimeError, match="2 cards.*1 visible"):
+                scale_run.card_mesh(a)
+        else:
+            assert scale_run.card_mesh(a) == (
+                cuda[:2], {"CUDA_VISIBLE_DEVICES": "{shard}"}, "2 cards")
+        a.share_card = True
+        mesh, env, what = scale_run.card_mesh(a)
+        assert mesh == [cuda[0]] * 2 and env is None
+        assert what.startswith("host overlap")
+    a = Namespace(cards=3, device="cpu", share_card=False)
+    assert scale_run.card_mesh(a) == ([torch.device("cpu")] * 3, None,
+                                      "3 cpu entries")
 
 
 def test_fc_aln_of_scale_run_matches_jax(scaled):
