@@ -179,7 +179,7 @@ GRAPH_CONFIGS = tuple(c for c in CONFIGS if c != OPS_CONFIG)
 # reads of the profiled passes (profiler started after the engine build)
 N_PROFILED = 65_536
 # the engine's host timers and graph counters every fc_aln pass reports
-SPLIT = ("prep_wait", "front_enqueue", "host_submit", "front_run",
+SPLIT = ("prep_wait", "front_enqueue", "host_submit",
          "dp_layout", "dp_enqueue", "dp_dispatch", "sync_chain", "sync_dp",
          "host_collect", "host_replay", "prep_s", "stream_s")
 

@@ -67,6 +67,7 @@ from __future__ import annotations
 import functools
 import json
 import os
+import resource
 import sys
 import time
 from collections import defaultdict, deque
@@ -80,6 +81,7 @@ from ..index.device import device_guard, resolve_device, upload
 from ..ops.extd2 import Extd2Params
 from ..parallel.mesh import canonical_mesh, gather, index_replicas, row_shards
 from ..utils import dna
+from ..utils.trace import Spans
 from . import native_glue
 from .host_align import (
     LEN_KMER,
@@ -250,6 +252,19 @@ def _append_results(states, res, lo: int, hi: int) -> None:
                    for j in range(int(cig_n[x]))]))
 
 
+# the counters of the spans that a stream may never open (no pinning on
+# the CPU, no batch yet), present from the start so that a reader tells
+# them from a program without them
+_SPAN_COUNTERS = ("source_s", "pin_s", "n_pin", "emit_s", "bam_write_s",
+                  "prep_cpu_s", "main_traced_s")
+
+
+def _peak_rss_gib() -> float:
+    """The process's peak RSS so far (ru_maxrss, KiB on Linux), in GiB."""
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024 \
+        / 2 ** 30
+
+
 def _log(msg: str) -> None:
     print(f"[pansvr engine] {msg}", file=sys.stderr)
 
@@ -263,6 +278,25 @@ class AlignEngine:
                  config: EngineConfig | None = None,
                  ori_chrom_names: list[str] | None = None, device="cuda",
                  mesh=None):
+        # wall seconds per engine phase and event counts, across batches,
+        # each phase a span of utils.trace (index_upload: the index's
+        # host tables built and uploaded; engine_build: all of __init__);
+        # rss_*_gib: the process's peak RSS (engine_rss_gib: its growth
+        # across __init__, rss_built_gib: after it, rss_peak_gib: after
+        # the last finished batch)
+        self.prof: dict[str, float] = defaultdict(float)
+        for k in _SPAN_COUNTERS:
+            self.prof[k] = 0.0
+        self.tr = Spans(self.prof)
+        self._bid = 0          # the next batch's id
+        self.last_batch = None  # id of the batch align_stream last yielded
+        rss0 = _peak_rss_gib()
+        with self.tr.span("engine_build", "engine_build"):
+            self._build(idx, params, config, ori_chrom_names, device, mesh)
+        self.prof["rss_built_gib"] = _peak_rss_gib()
+        self.prof["engine_rss_gib"] = self.prof["rss_built_gib"] - rss0
+
+    def _build(self, idx, params, config, ori_chrom_names, device, mesh):
         # mesh: a list of devices (parallel.mesh.make_data_mesh); the
         # engine's own device is then its first entry
         self.mesh = None if mesh is None else canonical_mesh(mesh)
@@ -283,9 +317,8 @@ class AlignEngine:
             raise ValueError("collect='device' is not available on a data "
                              "mesh (the mesh path collects on the host)")
         # one index replica per distinct device of the mesh
-        t = time.perf_counter()
-        self._replicas = index_replicas(self.mesh or [self.device], idx)
-        upload_s = time.perf_counter() - t
+        with self.tr.span("index_upload", "index_upload"):
+            self._replicas = index_replicas(self.mesh or [self.device], idx)
         self.didx = self._replicas[self.device]
         self.host = HostAligner(idx, self.p, ori_chrom_names=ori_chrom_names)
         self.sv_info = self.host.sv_info
@@ -316,17 +349,13 @@ class AlignEngine:
         self._comp_want_run = 0
         self._tier_window: list[tuple[int, int]] = []  # (n_fallback, n)
         self._fallback_warned = False
-        # wall seconds per engine phase and event counts, across batches
-        # (index_upload: the index's host tables built and uploaded)
-        self.prof: dict[str, float] = defaultdict(float)
-        self.prof["index_upload"] = upload_s
         # the per-batch programs as CUDA graphs (fuse_chain on a card):
         # one cache on one device, or one per distinct device of a mesh
         # (keyed by mesh entry); None: enqueued op by op
         graphs = self.cfg.fuse_chain and self.device.type == "cuda"
-        self._programs = GraphCache(self.device, self.prof) \
+        self._programs = GraphCache(self.device, self.tr) \
             if graphs and self.mesh is None else None
-        self._mesh_programs = {d: GraphCache(d, self.prof)
+        self._mesh_programs = {d: GraphCache(d, self.tr)
                                for d in dict.fromkeys(self.mesh)} \
             if graphs and self.mesh is not None else None
         # the DP graphs' read-code input, one buffer per codes length
@@ -398,7 +427,9 @@ class AlignEngine:
         out = {k: torch.from_numpy(np.ascontiguousarray(v))
                for k, v in host.items()}
         if self.device.type == "cuda":
-            out = {k: v.pin_memory() for k, v in out.items()}
+            with self.tr.span("pin", "pin_s"):
+                out = {k: v.pin_memory() for k, v in out.items()}
+            self.prof["n_pin"] += len(out)
         return out
 
     def _to_host(self, tensors: dict, host: dict) -> None:
@@ -406,12 +437,20 @@ class AlignEngine:
         tensors appended to host[k] (on the CPU: copies), so a later
         replay of the program that wrote them cannot change what the
         host reads. A mesh's entries each append their part."""
+        pinned = {}
+        cuda = [k for k, t in tensors.items() if t.device.type == "cuda"]
+        if cuda:
+            with self.tr.span("pin", "pin_s"):
+                pinned = {k: torch.empty(tensors[k].shape,
+                                         dtype=tensors[k].dtype,
+                                         pin_memory=True) for k in cuda}
+            self.prof["n_pin"] += len(cuda)
         for k, t in tensors.items():
-            if t.device.type != "cuda":
-                h = t.clone()
-            else:
-                h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            if k in pinned:
+                h = pinned[k]
                 h.copy_(t.contiguous(), non_blocking=True)
+            else:
+                h = t.clone()
             host.setdefault(k, []).append(h)
 
     def _event(self, host: dict, axes: dict | None = None, devices=None):
@@ -445,7 +484,21 @@ class AlignEngine:
 
     # ------------------------------------------------------------------
     def align_batch(self, seqs: list[str], oris) -> list[SingleEndState]:
-        return self._finish_batch(self._submit_batch(seqs, oris))
+        bid = self._bid
+        self._bid += 1
+        return self._finish_batch(self._submit_batch((seqs, oris), bid))
+
+    def _take(self, it):
+        """(the source's next batch or None at its end, the id it gets):
+        ids count the batches an engine takes, from 0."""
+        bid = self._bid
+        with self.tr.span("source", "source_s", batch=bid) as sp:
+            b = next(it, None)
+            if b is not None:
+                sp.attr(reads=len(b[0]))
+        if b is not None:
+            self._bid += 1
+        return b, bid
 
     def align_stream(self, batches):
         """Software-pipelined batches: cfg.stream_depth fronts stay in
@@ -454,7 +507,8 @@ class AlignEngine:
         fronts run. Host prep runs in one worker thread with two prep
         futures in flight. stream_depth 1: one batch at a time, the next
         front enqueued at the point cfg.pipe_order names. `batches` yields
-        (seqs, oris[, aux]); yields state lists / emit blobs in order."""
+        (seqs, oris[, aux]); yields state lists / emit blobs in order,
+        last_batch the id of the one just yielded."""
         from concurrent.futures import ThreadPoolExecutor
 
         it = iter(batches)
@@ -462,36 +516,38 @@ class AlignEngine:
         if depth <= 1:
             yield from self._align_stream_d1(it)
             return
-        b = next(it, None)
+        b, bid = self._take(it)
         if b is None:
             return
         with ThreadPoolExecutor(max_workers=1) as pool:
             q_front: deque = deque()   # front dispatched, chain pending
             q_dp: deque = deque()      # DP dispatched, results pending
-            q_prep: deque = deque()    # prep futures in flight
-            q_front.append(self._submit_batch(*b))
+            q_prep: deque = deque()    # (id, prep future) in flight
+            q_front.append(self._submit_batch(b, bid))
             for _ in range(depth - 1):
-                b = next(it, None)
+                b, bid = self._take(it)
                 if b is None:
                     break
-                q_front.append(self._submit_batch(*b))
+                q_front.append(self._submit_batch(b, bid))
             if b is not None:
                 while len(q_prep) < 2:
-                    b = next(it, None)
+                    b, bid = self._take(it)
                     if b is None:
                         break
-                    q_prep.append(pool.submit(self._prep_batch, *b))
+                    q_prep.append(
+                        (bid, pool.submit(self._prep_batch, *b, bid=bid)))
             while q_front or q_dp:
                 if q_front:
                     pend = q_front.popleft()
                     self._finish_front(pend)
                     q_dp.append(pend)
                     if q_prep:
-                        q_front.append(
-                            self._submit_prepped(q_prep.popleft().result))
-                        b = next(it, None)
+                        bid, fut = q_prep.popleft()
+                        q_front.append(self._submit_prepped(fut.result, bid))
+                        b, bid = self._take(it)
                         if b is not None:
-                            q_prep.append(pool.submit(self._prep_batch, *b))
+                            q_prep.append((bid, pool.submit(
+                                self._prep_batch, *b, bid=bid)))
                 # the DP phase waits one iteration while fronts remain
                 if q_dp and (not q_front or len(q_dp) > 1):
                     yield self._finish_dp(q_dp.popleft())
@@ -501,50 +557,61 @@ class AlignEngine:
         batch runs in a worker thread while this one finishes."""
         from concurrent.futures import ThreadPoolExecutor
 
-        b = next(it, None)
+        b, bid = self._take(it)
         if b is None:
             return
-        pend = self._submit_batch(*b)
+        pend = self._submit_batch(b, bid)
         with ThreadPoolExecutor(max_workers=1) as pool:
             while True:
-                nxt = next(it, None)
+                nxt, nbid = self._take(it)
                 if nxt is None:
                     yield self._finish_batch(pend)
                     return
-                prep_fut = pool.submit(self._prep_batch, *nxt)
+                prep_fut = pool.submit(self._prep_batch, *nxt, bid=nbid)
                 holder = {}
 
-                def dispatch_next(fut=prep_fut):
-                    holder["p"] = self._submit_prepped(fut.result)
+                def dispatch_next(fut=prep_fut, nbid=nbid):
+                    holder["p"] = self._submit_prepped(fut.result, nbid)
 
                 yield self._finish_batch(pend, on_dp_dispatched=dispatch_next)
                 pend = holder.get("p") or self._submit_prepped(
-                    prep_fut.result)
+                    prep_fut.result, nbid)
 
-    def _submit_batch(self, seqs, oris, aux=None):
+    def _submit_batch(self, b, bid: int):
+        """Prepare batch `b` ((seqs, oris[, aux])) here and dispatch it."""
         return self._submit_prepped(
-            functools.partial(self._prep_batch, seqs, oris, aux))
+            functools.partial(self._prep_batch, *b, bid=bid), bid)
 
-    def _submit_prepped(self, get_prep):
-        """Dispatch the front of the batch get_prep() returns (waiting for
-        the prep worker's future, or preparing it here). host_submit is
-        the sum of prep_wait (get_prep) and front_enqueue (the uploads
-        and the front's replay or op-by-op enqueue)."""
-        t0 = time.perf_counter()
-        prep = get_prep()
-        t1 = time.perf_counter()
-        pend = self._dispatch_front(prep)
-        t2 = time.perf_counter()
-        self.prof["prep_wait"] += t1 - t0
-        self.prof["front_enqueue"] += t2 - t1
-        self.prof["host_submit"] += t2 - t0
-        return pend
+    def _submit_prepped(self, get_prep, bid: int):
+        """Dispatch the front of batch `bid`, which get_prep() returns
+        (waiting for the prep worker's future, or preparing it here).
+        host_submit is the sum of prep_wait (get_prep) and front_enqueue
+        (the uploads and the front's replay or op-by-op enqueue)."""
+        tr = self.tr
+        with tr.span("host_submit", batch=bid):
+            with tr.span("prep_wait", "prep_wait", "host_submit"):
+                prep = get_prep()
+            with tr.span("front_enqueue", "front_enqueue", "host_submit",
+                         retry=prep["retry"]):
+                return self._dispatch_front(prep)
 
-    def _prep_batch(self, seqs: list[str], oris, aux=None):
-        """Host-only batch preparation (encode, STR screen, packing);
-        touches no device or adaptive state, so it runs in a worker
-        thread. "prep_s" in the result: its own wall seconds."""
-        t0 = time.perf_counter()
+    def _prep_batch(self, seqs: list[str], oris, aux=None, bid: int = -1,
+                    retry: int = 0):
+        """Host-only batch preparation (encode, STR screen, packing) of
+        batch `bid`, dispatch `retry`; touches no device or adaptive
+        state, so it runs in a worker thread. "prep_s" and "prep_cpu_s"
+        in the result: its own wall seconds and its thread's CPU
+        seconds."""
+        with self.tr.span("prep", batch=bid, retry=retry,
+                          reads=len(seqs)) as sp:
+            c0 = time.thread_time()
+            prep = self._prep(seqs, oris, aux)
+            cpu = time.thread_time() - c0
+            sp.attr(cpu_s=cpu)
+        prep.update(prep_s=sp.s, prep_cpu_s=cpu, bid=bid, retry=retry)
+        return prep
+
+    def _prep(self, seqs: list[str], oris, aux=None):
         cfg = self.cfg
         n = len(seqs)
         n_pad = max(64, 1 << (max(n, 1) - 1).bit_length())
@@ -650,7 +717,7 @@ class AlignEngine:
         base = dict(states=states, active=active, n=n, n_pad=n_pad,
                     seqs=seqs, oris=oris, oversize=oversize, aux=aux)
         if not active:
-            base.update(front=None, prep_s=time.perf_counter() - t0)
+            base.update(front=None)
             return base
         act_pad = np.zeros(n_pad, bool)
         act_pad[:n] = act_mask
@@ -659,8 +726,7 @@ class AlignEngine:
             lens2=np.concatenate([lens, lens]),
             mask2=np.concatenate([seed_mask_f, seed_mask_r], axis=0),
             is_str2=np.concatenate([is_str, is_str]), act_pad=act_pad,
-            S0=S0, L=L, codes_f=codes_f, codes_r=codes_r, lens=lens,
-            prep_s=time.perf_counter() - t0)
+            S0=S0, L=L, codes_f=codes_f, codes_r=codes_r, lens=lens)
         return base
 
     # ---- front + chain (+ collect), enqueued at dispatch ----------------
@@ -784,6 +850,7 @@ class AlignEngine:
         collect, and start the copies of their results to the host; waits
         for nothing (main thread only)."""
         self.prof["prep_s"] += prep.pop("prep_s", 0.0)
+        self.prof["prep_cpu_s"] += prep.pop("prep_cpu_s", 0.0)
         if "front" in prep:
             return prep   # no active reads
         cfg = self.cfg
@@ -800,10 +867,8 @@ class AlignEngine:
             if self._use_device_collect() else (0, 0)
         shapes = dict(L=L, n_pad=n_pad, S0=S0, S=S, M=M, n_ext=n_ext,
                       nf_mult=cfg.nf_mult, comp=comp, K=K, NC=NC, NP=NP)
-        t = time.perf_counter()
         if self.mesh is not None:
             front, chain = self._mesh_front(prep, shapes)
-            self.prof["front_run"] += time.perf_counter() - t
             prep.update(front=front, chain=chain, codes_flat=None)
         else:
             host = {k: prep.pop(k)
@@ -811,7 +876,6 @@ class AlignEngine:
             if not NC:
                 del host["act_pad"]
             out = self._run_front(host, shapes)
-            self.prof["front_run"] += time.perf_counter() - t
             chain, es, is_str, rid, active = front_parts(out)
             if rid is not None:
                 self.prof["n_compacted"] += 1
@@ -843,27 +907,39 @@ class AlignEngine:
 
     def _redispatch(self, pend, on_dp_dispatched) -> None:
         """Batch retry: prepare and dispatch the same batch again (with
-        the budgets just widened) and finish its front in place."""
-        pend2 = self._dispatch_front(self._prep_batch(
-            pend["seqs"], pend["oris"], pend.get("aux")))
-        pend2["retry"] = pend.get("retry", 0) + 1
+        the budgets just widened; the same id, the next retry count) and
+        finish its front in place."""
+        bid, retry = pend.get("bid", -1), pend.get("retry", 0) + 1
+        with self.tr.span("redispatch", batch=bid, retry=retry):
+            pend2 = self._dispatch_front(self._prep_batch(
+                pend["seqs"], pend["oris"], pend.get("aux"), bid=bid,
+                retry=retry))
         self.prof["n_retry"] += 1
         pend.clear()
         pend.update(pend2)
         self._finish_front(pend, on_dp_dispatched)
 
     def _finish_front(self, pend, on_dp_dispatched=None) -> None:
+        """The batch's front results to its DP dispatch: chain wait,
+        adaptive decisions, host fallback, host collect. Its own span
+        covers the adaptive layer's glue between the phases'."""
+        with self.tr.span("finish_front", batch=pend.get("bid", -1),
+                          retry=pend.get("retry", 0)):
+            self._finish_front_in(pend, on_dp_dispatched)
+
+    def _finish_front_in(self, pend, on_dp_dispatched) -> None:
         cfg = self.cfg
+        tr = self.tr
         states = pend["states"]
         active = pend["active"]
         n = pend["n"]
         n_pad = pend["n_pad"]
         seqs = pend["seqs"]
-        t = time.perf_counter()
-        for i in pend.get("oversize", ()):
-            states[i] = self.host.align_read(seqs[i], self._ori_obj(pend, i))
         if pend.get("oversize"):
-            self.prof["host_fallback"] += time.perf_counter() - t
+            with tr.span("fallback", "host_fallback"):
+                for i in pend["oversize"]:
+                    states[i] = self.host.align_read(seqs[i],
+                                                     self._ori_obj(pend, i))
         # the device tensors of the front live until this batch's chain
         # is final (a K miss re-chains from them)
         front = pend.pop("front")
@@ -876,9 +952,8 @@ class AlignEngine:
         sh = pend["shapes"]
         K, comp, NC, NP = sh["K"], sh["comp"], sh["NC"], sh["NP"]
         B2 = 2 * n_pad
-        t = time.perf_counter()
-        out = self._wait(pend.pop("chain"))
-        self.prof["sync_chain"] += time.perf_counter() - t
+        with tr.span("chain_wait", "sync_chain"):
+            out = self._wait(pend.pop("chain"))
         stats3 = out["stats3"]
         overflow, dropped, seed_count = stats3
         kmax = int(seed_count.max()) if len(seed_count) else 0
@@ -904,10 +979,9 @@ class AlignEngine:
                 raise RuntimeError(f"chain width {K} missed ({kmax} seeds) "
                                    "but the front's seeds were not kept")
             K = min(sh["S"], 32)
-            t = time.perf_counter()
-            out.update(self._wait(self._download(
-                self._chain_out(front, K, n_pad, NC, NP))))
-            self.prof["sync_chain"] += time.perf_counter() - t
+            with tr.span("rechain", "sync_chain"):
+                out.update(self._wait(self._download(
+                    self._chain_out(front, K, n_pad, NC, NP))))
             self.prof["n_rechain"] += 1
 
         fallback = set(int(r) % n_pad for r in np.nonzero(overflow > 0)[0])
@@ -980,13 +1054,12 @@ class AlignEngine:
         self.prof["n_hit_reads"] += int((hit_rows[:n_pad]
                                          | hit_rows[n_pad:])[:n].sum())
         pend["fallback"] = fallback
-        t = time.perf_counter()
-        for i in list(fallback):
-            if i < n and i in active:
-                states[i] = self.host.align_read(seqs[i],
-                                                 self._ori_obj(pend, i))
-                active.remove(i)
-        self.prof["host_fallback"] += time.perf_counter() - t
+        with tr.span("fallback", "host_fallback"):
+            for i in list(fallback):
+                if i < n and i in active:
+                    states[i] = self.host.align_read(seqs[i],
+                                                     self._ori_obj(pend, i))
+                    active.remove(i)
         self.prof["n_fallback"] += len(fallback)
         self.prof["n_oversize"] += len(pend.get("oversize", ()))
         self.prof["n_reads"] += n
@@ -1000,42 +1073,41 @@ class AlignEngine:
             on_dp_dispatched()
             on_dp_dispatched = None
         L = pend["codes_f"].shape[1]
-        t = time.perf_counter()
-        if NC:
-            # the device selected the chains and gathered their paths;
-            # host-path reads' chains get the skip bit so the C++ walk
-            # produces no results for them
-            n_chains, n_nodes = int(out["scal"][0]), int(out["scal"][2])
-            chain_meta = out["chain_meta"][:n_chains]
-            if fallback and n_chains:
-                chain_meta = chain_meta.copy()
-                m0 = chain_meta[:, 0]
-                fb_arr = np.fromiter(fallback, np.int32, len(fallback))
-                bad = (m0 >= 0) & np.isin(m0 & 0x7FFF, fb_arr)
-                chain_meta[:, 0] = np.where(bad, m0 | (1 << 24), m0)
-            gb = native_glue.GlueBatch.from_paths(
-                self._glue_lib, n_pad=n_pad, L=L, chain_meta=chain_meta,
-                path_a=out["path_a"][:n_nodes],
-                path_b=out["path_b"][:n_nodes],
-                path_dfe=out["path_dfe"][:n_nodes],
-                codes_f=pend["codes_f"], codes_r=pend["codes_r"],
-                lens=pend["lens"], packed_ref=self._packed_ref,
-                chr_starts=self._chr_starts64, sv_st_pos=self._sv_st_pos,
-                params=self.p)
-        else:
-            s_fb, p16, pre, hits8, hscore = chain_unpack(out, B2, K)
-            active_mask = np.zeros(n_pad, np.uint8)
-            if active:
-                active_mask[np.array(sorted(active), np.int64)] = 1
-            gb = native_glue.GlueBatch(
-                self._glue_lib, n_pad=n_pad, L=L, K=K,
-                s_rb=p16[0], s_re=p16[1], s_fb=s_fb, s_dfe=p16[2], pre=pre,
-                hit_idx=hits8[0], hit_score=hscore, hit_final=hits8[1],
-                codes_f=pend["codes_f"], codes_r=pend["codes_r"],
-                lens=pend["lens"], active_mask=active_mask,
-                packed_ref=self._packed_ref, chr_starts=self._chr_starts64,
-                sv_st_pos=self._sv_st_pos, params=self.p)
-        self.prof["host_collect"] += time.perf_counter() - t
+        with tr.span("collect", "host_collect"):
+            if NC:
+                # the device selected the chains and gathered their paths;
+                # host-path reads' chains get the skip bit so the C++ walk
+                # produces no results for them
+                n_chains, n_nodes = int(out["scal"][0]), int(out["scal"][2])
+                chain_meta = out["chain_meta"][:n_chains]
+                if fallback and n_chains:
+                    chain_meta = chain_meta.copy()
+                    m0 = chain_meta[:, 0]
+                    fb_arr = np.fromiter(fallback, np.int32, len(fallback))
+                    bad = (m0 >= 0) & np.isin(m0 & 0x7FFF, fb_arr)
+                    chain_meta[:, 0] = np.where(bad, m0 | (1 << 24), m0)
+                gb = native_glue.GlueBatch.from_paths(
+                    self._glue_lib, n_pad=n_pad, L=L, chain_meta=chain_meta,
+                    path_a=out["path_a"][:n_nodes],
+                    path_b=out["path_b"][:n_nodes],
+                    path_dfe=out["path_dfe"][:n_nodes],
+                    codes_f=pend["codes_f"], codes_r=pend["codes_r"],
+                    lens=pend["lens"], packed_ref=self._packed_ref,
+                    chr_starts=self._chr_starts64, sv_st_pos=self._sv_st_pos,
+                    params=self.p)
+            else:
+                s_fb, p16, pre, hits8, hscore = chain_unpack(out, B2, K)
+                active_mask = np.zeros(n_pad, np.uint8)
+                if active:
+                    active_mask[np.array(sorted(active), np.int64)] = 1
+                gb = native_glue.GlueBatch(
+                    self._glue_lib, n_pad=n_pad, L=L, K=K,
+                    s_rb=p16[0], s_re=p16[1], s_fb=s_fb, s_dfe=p16[2], pre=pre,
+                    hit_idx=hits8[0], hit_score=hscore, hit_final=hits8[1],
+                    codes_f=pend["codes_f"], codes_r=pend["codes_r"],
+                    lens=pend["lens"], active_mask=active_mask,
+                    packed_ref=self._packed_ref, chr_starts=self._chr_starts64,
+                    sv_st_pos=self._sv_st_pos, params=self.p)
         self.prof["n_dp_req"] += gb.n_req
         self._dispatch_dp_from_gb(pend, gb, on_dp_dispatched)
 
@@ -1156,9 +1228,21 @@ class AlignEngine:
         start their copy to the host right behind it, and one event (a
         mesh: one a device) goes behind the last. dp_dispatch = dp_layout
         (the host layout) + dp_enqueue (the rest)."""
-        cfg = self.cfg
-        t = time.perf_counter()
-        classes = cfg.dp_classes(pend["read_class"])
+        tr = self.tr
+        with tr.span("dp_dispatch", batch=pend.get("bid", -1),
+                     retry=pend.get("retry", 0)):
+            with tr.span("dp_layout", "dp_layout", "dp_dispatch"):
+                layout, meta, big, ql_all, tl_all = self._dp_layout(pend, gb)
+            with tr.span("dp_enqueue", "dp_enqueue", "dp_dispatch"):
+                chunks, handle = self._dp_enqueue(pend, gb, layout, meta)
+        if on_dp_dispatched is not None:
+            on_dp_dispatched()
+        pend["dp"] = ("native", gb, chunks, handle, big, ql_all, tl_all)
+
+    def _dp_layout(self, pend, gb):
+        """(chunk layout, the chunks' request metadata or None, the
+        problems too big for any class, query and target lengths)."""
+        classes = self.cfg.dp_classes(pend["read_class"])
         ql_all, tl_all = gb.req_sizes()
         assigned = np.full(gb.n_req, -1, np.int32)
         for ci, (cq, ct, _, _, _) in enumerate(classes):
@@ -1187,7 +1271,13 @@ class AlignEngine:
                 np.array([[0], [1], [0], [1], [0]], np.int32), off, axis=1)
             for cq, ct, W, mem, size, o in layout:
                 meta[:, o : o + len(mem)] = meta5[:, mem]
-        t_layout = time.perf_counter()
+        else:
+            meta = None
+        return layout, meta, np.nonzero(assigned < 0)[0], ql_all, tl_all
+
+    def _dp_enqueue(self, pend, gb, layout, meta):
+        """(each chunk's problems, the download handle of their results):
+        the chunks enqueued or replayed."""
         chunks = []
         host, axes = {}, {}
         if layout and self.mesh is None:
@@ -1215,53 +1305,55 @@ class AlignEngine:
                            f"packed{k}": packed}, host)
         handle = self._event(host, axes, self.mesh) if layout \
             else ({}, None, [])
-        big = np.nonzero(assigned < 0)[0]
         self.prof["n_dp_chunks"] += len(chunks)
-        t_end = time.perf_counter()
-        self.prof["dp_layout"] += t_layout - t
-        self.prof["dp_enqueue"] += t_end - t_layout
-        self.prof["dp_dispatch"] += t_end - t
-        if on_dp_dispatched is not None:
-            on_dp_dispatched()
-        pend["dp"] = ("native", gb, chunks, handle, big, ql_all, tl_all)
+        return chunks, handle
 
     def _finish_dp(self, pend):
+        """The batch's DP results, replay and emit: its state list or
+        record blob. Refreshes rss_peak_gib and last_batch."""
         kind = pend.pop("dp")
         states = pend["states"]
-        if kind[0] == "none":
-            if self._emit_ctx is not None and pend.get("aux") is not None:
-                return self._emit_tail(pend, states, None)
-            return states
-        return self._finish_native_dp(pend, *kind[1:])
+        bid, retry = pend.get("bid", -1), pend.get("retry", 0)
+        self.last_batch = bid
+        if kind[0] != "none":
+            out = self._finish_native_dp(pend, *kind[1:])
+        elif self._emit_ctx is not None and pend.get("aux") is not None:
+            # no DP, no replay: an emit outside host_replay, uncounted
+            with self.tr.span("emit", batch=bid, retry=retry):
+                out = self._emit_tail(pend, states, None)
+        else:
+            out = states
+        self.prof["rss_peak_gib"] = _peak_rss_gib()
+        return out
 
     def _finish_native_dp(self, pend, gb, chunks, handle, big, ql_all,
                           tl_all):
+        tr = self.tr
         states = pend["states"]
-        t = time.perf_counter()
-        for k in big:
-            qc, ql, tc, tl = gb.fill_dp(
-                np.array([k], np.int32), int(ql_all[k]), int(tl_all[k]), 1)
-            gb.set_dp_scalar(int(k), self._scalar_dp(qc[0, : ql[0]],
-                                                     tc[0, : tl[0]]))
-        t2 = time.perf_counter()
-        self.prof["dp_big"] += t2 - t
+        bid, retry = pend.get("bid", -1), pend.get("retry", 0)
+        with tr.span("dp_big", "dp_big", batch=bid, retry=retry, n=len(big)):
+            for k in big:
+                qc, ql, tc, tl = gb.fill_dp(np.array([k], np.int32),
+                                            int(ql_all[k]), int(tl_all[k]), 1)
+                gb.set_dp_scalar(int(k), self._scalar_dp(qc[0, : ql[0]],
+                                                         tc[0, : tl[0]]))
         self.prof["n_dp_big"] += len(big)
-        res = self._wait(handle)
-        for k, mem in enumerate(chunks):
-            # ops carry 3 (= no op) at skipped diagonals
-            gb.set_dp_chunk(mem, res[f"ops{k}"],
-                            res[f"packed{k}"][:, : len(mem)], True)
-        self.prof["sync_dp"] += time.perf_counter() - t2
+        with tr.span("dp_wait", "sync_dp", batch=bid, retry=retry):
+            res = self._wait(handle)
+            for k, mem in enumerate(chunks):
+                # ops carry 3 (= no op) at skipped diagonals
+                gb.set_dp_chunk(mem, res[f"ops{k}"],
+                                res[f"packed{k}"][:, : len(mem)], True)
 
-        t = time.perf_counter()
-        res = gb.replay()
-        if self._emit_ctx is not None and pend.get("aux") is not None:
-            out = self._emit_tail(pend, states, gb, res)
-        else:
-            _append_results(states, res, 0, len(res[0]))
-            out = states
-        gb.free()
-        self.prof["host_replay"] += time.perf_counter() - t
+        with tr.span("replay", "host_replay", batch=bid, retry=retry):
+            res = gb.replay()
+            if self._emit_ctx is not None and pend.get("aux") is not None:
+                with tr.span("emit", "emit_s"):
+                    out = self._emit_tail(pend, states, gb, res)
+            else:
+                _append_results(states, res, 0, len(res[0]))
+                out = states
+            gb.free()
         return out
 
     # ------------------------------------------------------------------

@@ -45,7 +45,6 @@ captured and counts them again at every replay.
 
 from __future__ import annotations
 
-import time
 from collections import OrderedDict
 
 import torch
@@ -54,6 +53,7 @@ from ..ops import extd2_cuda
 from ..ops.chain import chain_batch, chain_extract_batch
 from ..ops.collect import select_and_paths
 from ..ops.extd2 import Extd2Params, plan
+from ..utils.trace import Spans
 from ..ops.seeding import (
     BUDGET_OVERFLOW,
     DeviceSeeds,
@@ -294,11 +294,15 @@ class ProgramCache:
     graph_capture_s (the captures with their warm-ups; graph_warmup_s of
     it the warm-ups), n_graph_replay, graph_replay_s (the host's time in
     the replays), n_graph_evict, n_graph_held_max (the most programs the
-    cache held at once)."""
+    cache held at once). `prof`: that dict, or the engine's span
+    recorder (utils.trace.Spans) over it, whose spans graph_capture
+    (with its key), graph_warmup and graph_replay then take the batch
+    of the engine's span they run in."""
 
-    def __init__(self, device, prof: dict, max_programs: int = MAX_GRAPHS):
+    def __init__(self, device, prof, max_programs: int = MAX_GRAPHS):
         self.device = torch.device(device)
-        self.prof = prof
+        self.spans = prof if isinstance(prof, Spans) else Spans(prof)
+        self.prof = self.spans.prof
         self.max_programs = max_programs
         self._progs: OrderedDict = OrderedDict()
 
@@ -330,33 +334,32 @@ class ProgramCache:
                         f"program {key}: input {k} {tuple(x.shape)} "
                         f"{x.dtype} != {tuple(t.shape)} {t.dtype}")
                 t.copy_(x, non_blocking=True)
-        t = time.perf_counter()
-        self._replay(p)
-        self.prof["graph_replay_s"] += time.perf_counter() - t
+        with self.spans.span("graph_replay", "graph_replay_s"):
+            self._replay(p)
         extd2_cuda.count_launches(p.launches)
         self.prof["n_graph_replay"] += 1
         return p.out
 
     def _new(self, key, fn, inputs, fixed) -> _Program:
-        t0 = time.perf_counter()
-        p = _Program()
-        p.fn = fn
-        p.fixed = tuple(t.data_ptr() for t in fixed)
-        p.inputs = {}
-        for k, x in inputs.items():
-            p.inputs[k] = torch.empty(x.shape, dtype=x.dtype,
-                                      device=self.device)
-            p.inputs[k].copy_(x, non_blocking=True)
-        p.handle, p.out, p.launches = self._capture(fn, p.inputs)
-        self._progs[key] = p
-        self.prof["n_graph_held_max"] = max(self.prof["n_graph_held_max"],
-                                            min(len(self._progs),
-                                                self.max_programs))
-        if len(self._progs) > self.max_programs:
-            self._progs.popitem(last=False)
-            self.prof["n_graph_evict"] += 1
-        self.prof["n_graph_capture"] += 1
-        self.prof["graph_capture_s"] += time.perf_counter() - t0
+        with self.spans.span("graph_capture", "graph_capture_s",
+                             key=str(key)):
+            p = _Program()
+            p.fn = fn
+            p.fixed = tuple(t.data_ptr() for t in fixed)
+            p.inputs = {}
+            for k, x in inputs.items():
+                p.inputs[k] = torch.empty(x.shape, dtype=x.dtype,
+                                          device=self.device)
+                p.inputs[k].copy_(x, non_blocking=True)
+            p.handle, p.out, p.launches = self._capture(fn, p.inputs)
+            self._progs[key] = p
+            self.prof["n_graph_held_max"] = max(
+                self.prof["n_graph_held_max"],
+                min(len(self._progs), self.max_programs))
+            if len(self._progs) > self.max_programs:
+                self._progs.popitem(last=False)
+                self.prof["n_graph_evict"] += 1
+            self.prof["n_graph_capture"] += 1
         return p
 
     def _capture(self, fn, inputs: dict):
@@ -393,10 +396,9 @@ class GraphCache(ProgramCache):
         side.wait_stream(cur)
         with torch.cuda.device(self.device), torch.cuda.stream(side):
             # the warm-up's launches are set-up, counted nowhere
-            t = time.perf_counter()
-            with extd2_cuda.record_launches():
+            with self.spans.span("graph_warmup", "graph_warmup_s"), \
+                    extd2_cuda.record_launches():
                 fn(inputs)
-            self.prof["graph_warmup_s"] += time.perf_counter() - t
             # the warm-up's blocks stay cached for the side stream, where
             # only later warm-ups would reuse them: released before the
             # capture, so the pool's temporaries do not come on top of

@@ -86,7 +86,9 @@ def run_fc_aln(args, config=None, mesh=None, tracer=None):
     mesh (parallel.mesh.make_data_mesh) for the engine, which then
     ignores args.device; `tracer`: a context (a torch.profiler.profile)
     entered around the stream only, after the engine is built and the
-    index is on the device."""
+    index is on the device; with args.trace (a directory) the profile,
+    the caller's or one of the CPU and the card made here, goes to
+    args.trace/trace.json with the engine's spans (utils.trace.export)."""
     from ..align import native_glue
     from ..align.bam_out import EmitContext, min_filter_score
     from ..align.engine import AlignEngine
@@ -154,15 +156,15 @@ def run_fc_aln(args, config=None, mesh=None, tracer=None):
                 yield ([p[1] for p in chunk],
                        [parse_signal_comment(p[3])[0] for p in chunk])
 
-    if tracer is None:
-        tracer = contextlib.nullcontext()
-    if args.trace:
+    if tracer is None and args.trace:
         import torch
 
         acts = [torch.profiler.ProfilerActivity.CPU]
         if eng.device.type == "cuda":
             acts.append(torch.profiler.ProfilerActivity.CUDA)
         tracer = torch.profiler.profile(activities=acts)
+    if tracer is None:
+        tracer = contextlib.nullcontext()
     with tracer as prof:
         t = time.perf_counter()
         _run_aln_stream(chunks_a, eng, pe, writer, ori_writer, header, filt,
@@ -178,11 +180,27 @@ def run_fc_aln(args, config=None, mesh=None, tracer=None):
         except OSError:
             pass
     if args.trace:
+        from ..utils.trace import export
+
         os.makedirs(args.trace, exist_ok=True)
-        prof.export_chrome_trace(os.path.join(args.trace, "trace.json"))
-        phases = {k: round(v, 3) for k, v in eng.prof.items()}
+        got = export(prof, eng.tr, os.path.join(args.trace, "trace.json"))
+        p = eng.prof
+        phases = {k: round(v, 3) for k, v in p.items()}
         print(f"[fc_aln] engine phases (s) and counts: {phases}",
               file=sys.stderr)
+        # shares of the stream (the engine build's span came before it)
+        pct = {k: f"{100 * v / (p['stream_s'] or 1.0):.1f}%" for k, v in (
+            ("spans", p["main_traced_s"] - p["engine_build"]),
+            ("source", p["source_s"]), ("pin", p["pin_s"]),
+            ("emit", p["emit_s"]), ("bam_write", p["bam_write_s"]))}
+        print(f"[fc_aln] stream {p['stream_s']:.3f} s: main thread under "
+              f"spans {pct['spans']}, source {pct['source']}, pin "
+              f"{pct['pin']} ({int(p['n_pin'])} buffers), emit "
+              f"{pct['emit']}, BAM write {pct['bam_write']}; prep worker "
+              f"wall {p['prep_s']:.3f} s, CPU {p['prep_cpu_s']:.3f} s; "
+              f"trace.json: {got['ranges']} pansvr ranges with batch ids, "
+              f"{got['worker_spans']} worker spans (clock offset "
+              f"{got['offset_us']} us)", file=sys.stderr)
     return eng
 
 
@@ -205,9 +223,14 @@ def _run_aln_stream(chunks_a, eng, pe, writer, ori_writer, header, filt,
     from ..align.bam_out import emit_ori_pair, emit_pair
 
     if getattr(eng, "_emit_ctx", None) is not None and ori_writer is None:
+        # the BGZF compression runs inline here, every 8 MB of records
+        span = eng.tr.span
         for blob in eng.align_stream(batch_stream()):
-            writer.write_blob(blob)
-        writer.close()
+            with span("bam_write", "bam_write_s", batch=eng.last_batch,
+                      bytes=len(blob)):
+                writer.write_blob(blob)
+        with span("bam_write", "bam_write_s", close=1):
+            writer.close()
         return
 
     def emit_chunk(chunk, states):
@@ -396,8 +419,14 @@ def parse_args(argv):
     _device_arg(s, "the realignment engine")
     s.add_argument("--trace", default=None, metavar="DIR",
                    help="write a torch.profiler chrome trace of the "
-                        "realignment stream to DIR/trace.json and print "
-                        "the engine phase timers")
+                        "realignment stream to DIR/trace.json: the card's "
+                        "kernels and copies, the main thread's pansvr.* "
+                        "phase ranges (never nested, each with its batch "
+                        "id) and the prep worker's spans on a track of "
+                        "their own, on one timeline; print the engine "
+                        "phase timers, the main thread's share under "
+                        "spans and the source, pin, emit and BAM write "
+                        "shares, and the prep worker's wall and CPU")
     s.set_defaults(fn=run_fc_aln)
 
     s = sub.add_parser("fc_sv", help="realigned BAM -> VCF")
