@@ -280,10 +280,11 @@ class AlignEngine:
                  mesh=None):
         # wall seconds per engine phase and event counts, across batches,
         # each phase a span of utils.trace (index_upload: the index's
-        # host tables built and uploaded; engine_build: all of __init__);
-        # rss_*_gib: the process's peak RSS (engine_rss_gib: its growth
-        # across __init__, rss_built_gib: after it, rss_peak_gib: after
-        # the last finished batch)
+        # source arrays read and its tables derived on the device, with
+        # index_read and index_derive inside; engine_build: all of
+        # __init__); rss_*_gib: the process's peak RSS (engine_rss_gib:
+        # its growth across __init__, rss_built_gib: after it,
+        # rss_peak_gib: after the last finished batch)
         self.prof: dict[str, float] = defaultdict(float)
         for k in _SPAN_COUNTERS:
             self.prof[k] = 0.0
@@ -318,7 +319,8 @@ class AlignEngine:
                              "mesh (the mesh path collects on the host)")
         # one index replica per distinct device of the mesh
         with self.tr.span("index_upload", "index_upload"):
-            self._replicas = index_replicas(self.mesh or [self.device], idx)
+            self._replicas = index_replicas(self.mesh or [self.device], idx,
+                                            self.tr)
         self.didx = self._replicas[self.device]
         self.host = HostAligner(idx, self.p, ori_chrom_names=ori_chrom_names)
         self.sv_info = self.host.sv_info

@@ -13,7 +13,12 @@ one per line, like the reference's unipath.chr.
 
 ``save_index`` + ``load_index`` round-trip exactly (tested); loaded
 arrays are read-only memmaps with the same dtypes/shapes the builder
-produces.
+produces. A mapped page that is read enters the process's resident set
+and stays there while the mapping lives, so index.device.to_device
+reads the arrays it needs from these files (each memmap's ``offset``)
+rather than through the mappings, and derives the padded device tables
+on the device: the host holds neither those tables nor the mapped
+pages of the first-level table and the entry arrays.
 """
 
 from __future__ import annotations

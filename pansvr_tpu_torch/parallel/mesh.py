@@ -72,13 +72,14 @@ def row_shards(n: int, mesh) -> list:
             if s * per < n]
 
 
-def index_replicas(mesh, idx: RdBGIndex) -> dict:
-    """{device: DeviceIndex}: the host index uploaded once per distinct
-    device of the mesh."""
+def index_replicas(mesh, idx: RdBGIndex, tr=None) -> dict:
+    """{device: DeviceIndex}: the host index's tables derived once per
+    distinct device of the mesh (to_device; `tr`, a utils.trace.Spans,
+    takes its spans)."""
     out = {}
     for d in mesh:
         if d not in out:
-            out[d] = to_device(idx, d)
+            out[d] = to_device(idx, d, tr)
     return out
 
 

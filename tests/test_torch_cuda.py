@@ -12,7 +12,8 @@ collect, its depth-3 stream with the adaptive state after every batch,
 and a whole batch without a stream sync; the per-batch CUDA graphs
 (align/programs.py) against the same programs enqueued op by op, on one
 device and per entry of a data mesh ([cuda:0, cuda:0], and four cards
-where the machine has them).
+where the machine has them); the index tables derived on the card
+against those derived on the CPU.
 """
 
 import numpy as np
@@ -142,6 +143,62 @@ def test_wrapper_refuses_mixed_devices(cuda_device):
     q, ql, t, tl = _problems(np.random.default_rng(1), 48, 64, 4)
     with pytest.raises(ValueError, match="devices"):
         ec.extd2_fwd(q.to(cuda_device), ql, t, tl, ALN, 64)
+
+
+def _vmrss() -> int:
+    """The process's current resident set (VmRSS), bytes."""
+    with open("/proc/self/status") as fh:
+        for line in fh:
+            if line.startswith("VmRSS:"):
+                return int(line.split()[1]) << 10
+    raise RuntimeError("no VmRSS in /proc/self/status")
+
+
+@pytest.mark.cuda
+def test_to_device_card_matches_cpu_from_store(cuda_device, tmp_path):
+    """to_device on the card over a memory-mapped store at first level 12
+    (6,000,000 entries: 128 MiB of ent_pack, a 64 MiB first-level table)
+    gives the CPU's tables field for field, and the process's resident
+    set, sampled every 2 ms during the call, grows by no more than the
+    two staging buffers and 64 MiB: the host holds no table. A first
+    call on a small store loads the kernels it launches."""
+    import dataclasses
+    import threading
+    import time
+
+    from index_worlds import synthetic_index
+    from pansvr_tpu_torch.index import device
+    from pansvr_tpu_torch.index.store import load_index, save_index
+
+    save_index(synthetic_index(56_000, level=10), str(tmp_path / "small"))
+    save_index(synthetic_index(6_000_000), str(tmp_path / "big"))
+    device.to_device(load_index(str(tmp_path / "small")), cuda_device)
+    idx = load_index(str(tmp_path / "big"))
+    peak, stop = [0], threading.Event()
+
+    def sample():
+        while not stop.is_set():
+            peak[0] = max(peak[0], _vmrss())
+            time.sleep(0.002)
+
+    before = _vmrss()
+    th = threading.Thread(target=sample)
+    th.start()
+    try:
+        got = device.to_device(idx, cuda_device)
+    finally:
+        stop.set()
+        th.join()
+    grew = max(peak[0], _vmrss()) - before
+    assert grew <= 2 * device.STAGE_BYTES + (64 << 20), grew
+    want = device.to_device(idx, "cpu")
+    for f in dataclasses.fields(want):
+        a, b = getattr(got, f.name), getattr(want, f.name)
+        if isinstance(b, torch.Tensor):
+            assert a.device.type == "cuda" and a.dtype == b.dtype, f.name
+            assert torch.equal(a.cpu(), b), f.name
+        else:
+            assert a == b, f.name
 
 
 @pytest.mark.cuda

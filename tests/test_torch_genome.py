@@ -13,11 +13,13 @@ import shutil
 import subprocess
 import sys
 import tracemalloc
+from collections import defaultdict
 
 import numpy as np
 import pytest
 import torch
 
+from index_worlds import synthetic_index
 from pansvr_tpu_torch import scale_run, world
 
 # torch's intra-op threads slow the plain path's many small ops several
@@ -131,11 +133,14 @@ def _jax_device_arrays(j):
             "uni_posp", "uni_pos", "ref_words", "ent_run", "uni_words_pad")})
 
 
-def _assert_device_equal(idx):
+def _assert_device_equal(idx, d=None):
+    """The port's tables `d` (default: to_device(idx, "cpu")) equal the
+    JAX package's to_device(idx), values, dtypes and padded sizes."""
     from pansvr_tpu.index.device import to_device as jax_to_device
     from pansvr_tpu_torch.index.device import to_device
 
-    d, j = to_device(idx, "cpu"), jax_to_device(idx)
+    d = d or to_device(idx, "cpu")
+    j = jax_to_device(idx)
     assert d.n_kmer == j.n_kmer and d.n_uni == j.n_uni
     assert d.first_level_bases == idx.first_level_bases
     for f, want in _jax_device_arrays(j).items():
@@ -159,36 +164,6 @@ def test_to_device_matches_jax_at_first_level(genome, level):
     _assert_device_equal(idx)
 
 
-def _synthetic_index(n_k, level=12, n_uni=20_000, seed=11):
-    """An RdBGIndex of n_k random entries whose first-level buckets lie
-    in [5000, 4^level - 7000): runs of empty buckets at both ends of the
-    table and between the entries."""
-    from pansvr_tpu_torch.index.builder import K_T, LEN_KMER, RdBGIndex
-
-    rng = np.random.default_rng(seed)
-    low = np.uint64(2 * (K_T - level))
-    bucket = rng.integers(5000, 4 ** level - 7000, n_k).astype(np.uint64)
-    full = np.sort((bucket << low) | rng.integers(
-        0, 1 << int(low), n_k).astype(np.uint64))
-    hash_g = np.searchsorted(full, np.arange(4 ** level + 1, dtype=np.uint64)
-                             << low).astype(np.int32)
-    uni_len = n_k + n_uni * K_T
-    cuts = np.sort(rng.choice(uni_len - 1, n_uni - 1, replace=False) + 1)
-    posp = np.concatenate([[0], np.cumsum(rng.integers(1, 4, n_uni))])
-    return RdBGIndex(
-        k=K_T, search_k=LEN_KMER, first_level_bases=level,
-        ref_codes=rng.integers(0, 5, 4000).astype(np.uint8),
-        ref_words=np.zeros(250, np.uint64), chr_names=["c"],
-        chr_starts=np.array([0, 4000]),
-        uni_codes=rng.integers(0, 5, uni_len).astype(np.uint8),
-        uni_words=np.zeros(1, np.uint64),
-        uni_seqf=np.concatenate([[0], cuts, [uni_len]]).astype(np.int64),
-        uni_pos=rng.integers(0, 4000, posp[-1]), uni_posp=posp,
-        hash_g=hash_g, kmer_g=(full & ((np.uint64(1) << low) - np.uint64(1))
-                               ).astype(np.uint32),
-        off_g=rng.integers(0, uni_len - K_T, n_k))
-
-
 @pytest.mark.parametrize("n_k", [56_000, 2_000_000])
 def test_to_device_matches_jax_on_synthetic_buckets(n_k):
     """Synthetic tables at first level 12 with runs of empty buckets, the
@@ -199,7 +174,7 @@ def test_to_device_matches_jax_on_synthetic_buckets(n_k):
     table, its int64 per-entry columns ~180 bytes an entry)."""
     from pansvr_tpu_torch.index.device import to_device
 
-    idx = _synthetic_index(n_k)
+    idx = synthetic_index(n_k)
     sizes = np.diff(idx.hash_g)
     assert sizes[:5000].sum() == 0 and sizes[-7000:].sum() == 0
     assert idx.hash_g[-1] == n_k
@@ -212,6 +187,75 @@ def test_to_device_matches_jax_on_synthetic_buckets(n_k):
         d.ref_words, d.uni_words_pad))
     assert peak < out + 32 * n_k + (32 << 20), (peak, out)
     _assert_device_equal(idx)
+
+
+def _store(idx, path):
+    """`idx` saved as an index store and reopened memory-mapped."""
+    from pansvr_tpu_torch.index.store import load_index, save_index
+
+    save_index(idx, str(path))
+    m = load_index(str(path))
+    assert isinstance(m.hash_g, np.memmap)
+    return m
+
+
+@pytest.mark.parametrize("level", [10, 12])
+def test_to_device_from_store_matches_jax(tmp_path, monkeypatch, level):
+    """The tables derived from a memory-mapped index store, read through
+    staging buffers of 5,000 bytes (reads and copies cross buffers and
+    elements), equal the JAX package's to_device over the same index
+    held in memory, at first levels with runs of empty buckets at both
+    ends; index_read_bytes counts the source arrays' bytes, and the host
+    makes no NumPy allocation of the tables' size."""
+    from pansvr_tpu_torch.index import device
+    from pansvr_tpu_torch.utils.trace import Spans
+
+    idx = synthetic_index(56_000, level=level)
+    sizes = np.diff(idx.hash_g)
+    assert sizes[:5000].sum() == 0 and sizes[-7000:].sum() == 0
+    m = _store(idx, tmp_path)
+    monkeypatch.setattr(device, "STAGE_BYTES", 5000)
+    prof = defaultdict(float)
+    tracemalloc.start()
+    d = device.to_device(m, "cpu", Spans(prof))
+    peak = tracemalloc.get_traced_memory()[1]
+    tracemalloc.stop()
+    assert peak < 1 << 20, peak
+    assert prof["index_read_bytes"] == sum(
+        getattr(idx, f).nbytes for f in device.SOURCES)
+    assert prof["index_read_s"] > 0 and prof["index_derive_s"] > 0
+    _assert_device_equal(idx, d)
+
+
+def _mapped_rss_kib(names):
+    """{name: Rss kB} of this process's mappings of <name>.npy files."""
+    out, cur = {}, None
+    with open("/proc/self/smaps") as fh:
+        for line in fh:
+            head = line.split()
+            if "-" in head[0] and len(head) >= 5:
+                base = os.path.basename(head[-1]) if len(head) >= 6 else ""
+                cur = base[:-4] if base[:-4] in names \
+                    and base.endswith(".npy") else None
+            elif cur is not None and head[0] == "Rss:":
+                out[cur] = out.get(cur, 0) + int(head[1])
+    return out
+
+
+def test_to_device_leaves_store_mappings_out_of_rss(tmp_path):
+    """to_device reads the store's files, not its mappings: afterwards
+    none of the source arrays' mappings has a resident page (the 4^12
+    first-level table is 64 MiB), where one read through the mapping
+    makes hash_g's resident."""
+    from pansvr_tpu_torch.index import device
+
+    m = _store(synthetic_index(56_000), tmp_path)
+    device.to_device(m, "cpu")
+    rss = _mapped_rss_kib(device.SOURCES)
+    assert set(rss) == set(device.SOURCES), rss
+    assert all(v == 0 for v in rss.values()), rss
+    assert int(np.asarray(m.hash_g).max()) == 56_000
+    assert _mapped_rss_kib({"hash_g"})["hash_g"] > 60_000
 
 
 def test_fc_aln_same_records_at_two_first_levels(genome, tmp_path):
