@@ -67,7 +67,6 @@ from __future__ import annotations
 import functools
 import json
 import os
-import resource
 import sys
 import time
 from collections import defaultdict, deque
@@ -80,7 +79,7 @@ from ..index.builder import RdBGIndex
 from ..index.device import device_guard, resolve_device, upload
 from ..ops.extd2 import Extd2Params
 from ..parallel.mesh import canonical_mesh, gather, index_replicas, row_shards
-from ..utils import dna
+from ..utils import dna, memory
 from ..utils.trace import Spans
 from . import native_glue
 from .host_align import (
@@ -259,12 +258,6 @@ _SPAN_COUNTERS = ("source_s", "pin_s", "n_pin", "emit_s", "bam_write_s",
                   "prep_cpu_s", "main_traced_s")
 
 
-def _peak_rss_gib() -> float:
-    """The process's peak RSS so far (ru_maxrss, KiB on Linux), in GiB."""
-    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024 \
-        / 2 ** 30
-
-
 def _log(msg: str) -> None:
     print(f"[pansvr engine] {msg}", file=sys.stderr)
 
@@ -282,20 +275,30 @@ class AlignEngine:
         # each phase a span of utils.trace (index_upload: the index's
         # source arrays read and its tables derived on the device, with
         # index_read and index_derive inside; engine_build: all of
-        # __init__); rss_*_gib: the process's peak RSS (engine_rss_gib:
-        # its growth across __init__, rss_built_gib: after it,
-        # rss_peak_gib: after the last finished batch)
+        # __init__); rss_*_gib: the process's peak RSS (rss_start_gib:
+        # before __init__, engine_rss_gib: its growth across __init__,
+        # rss_built_gib: after it, rss_peak_gib: after the last finished
+        # batch); the resident set by kind at the engine's start, once
+        # built and at each stream's end (_mem_snapshot)
         self.prof: dict[str, float] = defaultdict(float)
         for k in _SPAN_COUNTERS:
             self.prof[k] = 0.0
+        # the graph warm-ups' and captures' VmRSS growth (GraphCache;
+        # none op by op)
+        self.prof["warmup_rss_gib"] = self.prof["capture_rss_gib"] = 0.0
         self.tr = Spans(self.prof)
         self._bid = 0          # the next batch's id
         self.last_batch = None  # id of the batch align_stream last yielded
-        rss0 = _peak_rss_gib()
+        # per snapshot point: VmRSS, the top libraries, the read's seconds
+        self.mem: dict[str, dict] = {}
+        self.prof["rss_start_gib"] = memory.peak_rss_gib()
+        self._mem_snapshot("start")
         with self.tr.span("engine_build", "engine_build"):
             self._build(idx, params, config, ori_chrom_names, device, mesh)
-        self.prof["rss_built_gib"] = _peak_rss_gib()
-        self.prof["engine_rss_gib"] = self.prof["rss_built_gib"] - rss0
+        self.prof["rss_built_gib"] = memory.peak_rss_gib()
+        self.prof["engine_rss_gib"] = self.prof["rss_built_gib"] \
+            - self.prof["rss_start_gib"]
+        self._mem_snapshot("built")
 
     def _build(self, idx, params, config, ori_chrom_names, device, mesh):
         # mesh: a list of devices (parallel.mesh.make_data_mesh); the
@@ -367,6 +370,26 @@ class AlignEngine:
         self.shape_sets: dict[str, set] = {"front": set(), "dp": set()}
         self._emit_ctx = None
         self._emit_pe = None
+
+    def _mem_snapshot(self, point: str) -> None:
+        """The resident set by kind of mapping (utils.memory) at `point`
+        (start, built, end): prof rss_<point>_<kind>_gib, and at the end
+        rss_end_gib (VmRSS) and the pinned host allocator's counters (0
+        off a card); VmRSS, the top libraries and the read's seconds in
+        mem[point]. Nothing where /proc is missing."""
+        m = memory.rss_by_kind()
+        if m is None:
+            return
+        for k, v in m["kinds"].items():
+            self.prof[f"rss_{point}_{k}_gib"] = v
+        if point == "end":
+            if m["vmrss"] is not None:
+                self.prof["rss_end_gib"] = m["vmrss"]
+            # off a card nothing is pinned
+            self.prof.update(memory.pinned_host()
+                             if self.device.type == "cuda" else
+                             dict.fromkeys(memory.PINNED, 0.0))
+        self.mem[point] = dict(vmrss=m["vmrss"], top=m["top"], s=m["s"])
 
     # ------------------------------------------------------------------
     def load_tuning(self, path: str) -> bool:
@@ -510,14 +533,23 @@ class AlignEngine:
         futures in flight. stream_depth 1: one batch at a time, the next
         front enqueued at the point cfg.pipe_order names. `batches` yields
         (seqs, oris[, aux]); yields state lists / emit blobs in order,
-        last_batch the id of the one just yielded."""
+        last_batch the id of the one just yielded. Once the source is
+        exhausted and its last batch yielded: the resident set by kind
+        (_mem_snapshot "end", span mem_snapshot), which each stream
+        overwrites."""
+        it = iter(batches)
+        if self.cfg.stream_depth <= 1:
+            yield from self._align_stream_d1(it)
+        else:
+            yield from self._align_stream_deep(it)
+        with self.tr.span("mem_snapshot"):
+            self._mem_snapshot("end")
+
+    def _align_stream_deep(self, it):
+        """stream_depth > 1: align_stream's software pipeline."""
         from concurrent.futures import ThreadPoolExecutor
 
-        it = iter(batches)
         depth = self.cfg.stream_depth
-        if depth <= 1:
-            yield from self._align_stream_d1(it)
-            return
         b, bid = self._take(it)
         if b is None:
             return
@@ -1325,7 +1357,7 @@ class AlignEngine:
                 out = self._emit_tail(pend, states, None)
         else:
             out = states
-        self.prof["rss_peak_gib"] = _peak_rss_gib()
+        self.prof["rss_peak_gib"] = memory.peak_rss_gib()
         return out
 
     def _finish_native_dp(self, pend, gb, chunks, handle, big, ql_all,

@@ -53,6 +53,7 @@ from ..ops import extd2_cuda
 from ..ops.chain import chain_batch, chain_extract_batch
 from ..ops.collect import select_and_paths
 from ..ops.extd2 import Extd2Params, plan
+from ..utils.memory import rss_growth
 from ..utils.trace import Spans
 from ..ops.seeding import (
     BUDGET_OVERFLOW,
@@ -377,7 +378,8 @@ class GraphCache(ProgramCache):
     the "global" capture mode (any call that is unsafe under capture, in
     any thread, fails it), the cached blocks the warm-up left released
     in between; a replay runs on the current stream. A failed capture or
-    replay raises."""
+    replay raises. The process's VmRSS growth across the warm-ups and
+    across the captures adds to warmup_rss_gib and capture_rss_gib."""
 
     def __init__(self, device, prof: dict, max_programs: int = MAX_GRAPHS):
         super().__init__(device, prof, max_programs)
@@ -394,9 +396,13 @@ class GraphCache(ProgramCache):
         cur = torch.cuda.current_stream(self.device)
         side = self._stream
         side.wait_stream(cur)
+        prof = self.prof
         with torch.cuda.device(self.device), torch.cuda.stream(side):
-            # the warm-up's launches are set-up, counted nowhere
-            with self.spans.span("graph_warmup", "graph_warmup_s"), \
+            # the warm-up's launches are set-up, counted nowhere; its
+            # VmRSS growth is mostly the modules its ops load on their
+            # first use (warmup_rss_gib)
+            with rss_growth(prof, "warmup_rss_gib"), \
+                    self.spans.span("graph_warmup", "graph_warmup_s"), \
                     extd2_cuda.record_launches():
                 fn(inputs)
             # the warm-up's blocks stay cached for the side stream, where
@@ -405,7 +411,8 @@ class GraphCache(ProgramCache):
             # them, and nothing of the warm-up stays reserved after it
             torch.cuda.empty_cache()
             graph = torch.cuda.CUDAGraph()
-            with extd2_cuda.record_launches() as launches:
+            with rss_growth(prof, "capture_rss_gib"), \
+                    extd2_cuda.record_launches() as launches:
                 graph.capture_begin(pool=self._pool,
                                     capture_error_mode="global")
                 try:

@@ -201,7 +201,46 @@ def run_fc_aln(args, config=None, mesh=None, tracer=None):
               f"trace.json: {got['ranges']} pansvr ranges with batch ids, "
               f"{got['worker_spans']} worker spans (clock offset "
               f"{got['offset_us']} us)", file=sys.stderr)
+        for line in _memory_lines(eng):
+            print(f"[fc_aln] {line}", file=sys.stderr)
     return eng
+
+
+def _memory_lines(eng) -> list[str]:
+    """The engine's resident-set snapshots (AlignEngine._mem_snapshot),
+    the pinned host allocator's counters and the graph warm-ups' growth,
+    as lines of the phase print."""
+    from ..utils.memory import KINDS
+
+    p, mem = eng.prof, eng.mem
+    pts = [k for k in ("start", "built", "end") if k in mem]
+    if not pts:
+        return []
+
+    def row(val, fmt=".3f"):
+        return " / ".join(format(val(pt), fmt) for pt in pts)
+
+    kinds = ", ".join(
+        f"{k} " + row(lambda pt, k=k: p[f"rss_{pt}_{k}_gib"]) for k in KINDS)
+    out = [f"resident set (GiB) at engine {' / '.join(pts)}: VmRSS "
+           f"{row(lambda pt: mem[pt]['vmrss'] or 0.0)} (peak "
+           f"{p['rss_peak_gib']:.3f}); {kinds}; smaps read in "
+           f"{row(lambda pt: mem[pt]['s'], '.4f')} s"]
+    if "end" in mem:
+        out.append("libraries resident at the stream's end (GiB): "
+                   + ", ".join(f"{os.path.basename(path)} {g:.3f}"
+                               for path, g in mem["end"]["top"]))
+    if "pinned_host_gib" in p:
+        peak = p.get("pinned_active_peak_gib")
+        out.append(f"pinned host allocator: {p['pinned_host_gib']:.3f} GiB "
+                   f"owned in {int(p.get('n_pinned_blocks', 0))} blocks, "
+                   "active peak " + ("not counted by this torch"
+                                     if peak is None else f"{peak:.3f} GiB"))
+    out.append(f"VmRSS growth across the graph warm-ups "
+               f"{p['warmup_rss_gib']:.3f} GiB, across the captures "
+               f"{p['capture_rss_gib']:.3f} GiB "
+               f"({int(p['n_graph_capture'])} captures)")
+    return out
 
 
 def _run_aln_stream(chunks_a, eng, pe, writer, ori_writer, header, filt,

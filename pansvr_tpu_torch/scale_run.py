@@ -108,6 +108,7 @@ import sys
 import time
 
 from . import world
+from .utils.memory import peak_rss_gib
 
 STAGES = ("gen", "anchor", "index", "signal", "aln", "aln_ops", "aln_cards",
           "sort", "sv", "sv_inline", "parity", "compare")
@@ -250,12 +251,6 @@ def inline_shard(p: dict, a) -> range:
         WORLDS[a.world]["inline_shards"])[0]
 
 
-def _peak_rss_gib() -> float:
-    import resource
-
-    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20
-
-
 def _gpu_peak_mib(dev, reserved: bool = False) -> float | None:
     """Peak GPU memory allocated (or reserved by the caching allocator,
     graph pools included) on dev since the last reset, MiB."""
@@ -327,15 +322,15 @@ def _time_to_device(index_dir: str, dev) -> dict:
 
     idx = world.load_index(index_dir)
     before = _rss_now()["VmRSS"]
-    peak_before = _peak_rss_gib()
+    peak_before = peak_rss_gib()
     t = time.perf_counter()
     didx = to_device(idx, dev)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     out = dict(seconds=time.perf_counter() - t, rss_before_gib=before,
                peak_rss_before_gib=peak_before,
-               peak_rss_after_gib=_peak_rss_gib(),
-               peak_step_gib=_peak_rss_gib() - before,
+               peak_rss_after_gib=peak_rss_gib(),
+               peak_step_gib=peak_rss_gib() - before,
                bytes=sum(index_tensor_bytes(didx).values()))
     del didx
     if dev.type == "cuda":
@@ -861,7 +856,7 @@ def main(argv=None) -> int:
         line = _CHILDREN[a.child](p, a)
         # this process's own peak (the wrapper's covers its children too,
         # nvcc's kernel build among them)
-        line["self_peak_rss_gib"] = _peak_rss_gib()
+        line["self_peak_rss_gib"] = peak_rss_gib()
         _write_child(a.out, a.child, line)
         return 0
 

@@ -332,6 +332,43 @@ def test_engine_batch_makes_no_stream_sync(cuda_device, small_world, collect):
 
 
 @pytest.mark.cuda
+def test_host_memory_counters_on_card(cuda_device, small_world):
+    """A capture of a tiny program adds its warm-up's VmRSS growth
+    (warmup_rss_gib, at least 0: its op's module loads); after a short
+    stream on the card the pinned host allocator owns blocks, at least as
+    many bytes as were ever checked out at once where this torch counts
+    those (utils.memory.pinned_host)."""
+    from collections import defaultdict
+
+    from pansvr_tpu_torch.align.engine import AlignEngine
+    from pansvr_tpu_torch.align.host_align import OriResult
+    from pansvr_tpu_torch.align.programs import GraphCache
+
+    if not hasattr(torch.cuda, "host_memory_stats"):
+        pytest.skip("this torch has no torch.cuda.host_memory_stats")
+    prof = defaultdict(float)
+    cache = GraphCache(cuda_device, prof)
+    x = torch.arange(4096, dtype=torch.int64, device=cuda_device)
+    got = cache.run(("tiny",), lambda inp: {"y": torch.cumsum(inp["x"] * 3, 0)},
+                    {"x": x})
+    assert torch.equal(got["y"].cpu(), torch.cumsum(x.cpu() * 3, 0))
+    assert prof["n_graph_capture"] == 1 and prof["warmup_rss_gib"] >= 0
+    assert "capture_rss_gib" in prof
+
+    idx, names, seqs = small_world
+    eng = AlignEngine(idx, ori_chrom_names=names, device=cuda_device)
+    batches = [(seqs[i : i + 48], [OriResult(unmapped=True)] * 48)
+               for i in range(0, 144, 48)]
+    assert len(list(eng.align_stream(iter(batches)))) == 3
+    p = eng.prof
+    assert p["pinned_host_gib"] > 0 and p["n_pinned_blocks"] > 0
+    if "pinned_active_peak_gib" in p:
+        assert p["pinned_host_gib"] >= p["pinned_active_peak_gib"] > 0
+    assert p["warmup_rss_gib"] >= 0
+    assert p["rss_end_lib_gib"] > 0
+
+
+@pytest.mark.cuda
 def test_contig_dp_batcher_card_matches_cpu(cuda_device):
     """ContigDpBatcher on the card (K1 + K2 at 576x704/W192, the fc_sv
     profile) gives the results of its plain CPU run, field for field,

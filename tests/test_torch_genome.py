@@ -229,16 +229,14 @@ def test_to_device_from_store_matches_jax(tmp_path, monkeypatch, level):
 
 def _mapped_rss_kib(names):
     """{name: Rss kB} of this process's mappings of <name>.npy files."""
-    out, cur = {}, None
+    from pansvr_tpu_torch.utils.memory import mappings
+
+    out = {}
     with open("/proc/self/smaps") as fh:
-        for line in fh:
-            head = line.split()
-            if "-" in head[0] and len(head) >= 5:
-                base = os.path.basename(head[-1]) if len(head) >= 6 else ""
-                cur = base[:-4] if base[:-4] in names \
-                    and base.endswith(".npy") else None
-            elif cur is not None and head[0] == "Rss:":
-                out[cur] = out.get(cur, 0) + int(head[1])
+        for path, kib in mappings(fh.read()):
+            base = os.path.basename(path)
+            if base.endswith(".npy") and base[:-4] in names:
+                out[base[:-4]] = out.get(base[:-4], 0) + kib
     return out
 
 
