@@ -1,8 +1,7 @@
 #!/usr/bin/env python3
 """On-card smoke run of the PyTorch/CUDA port (pansvr_tpu_torch): fc_aln,
-the on-card self-check, fc_sv, the whole pipeline (`run`), the
-multi-GPU slice (fc_aln fan-out, the data-mesh engine, the sharded DP),
-the chromosome-scale world and the genome world (first level 14) on one
+the on-card self-check, fc_sv, the whole pipeline (`run`), the fc_aln
+fan-out, the chromosome-scale world and the genome world (first level 14) on one
 card.
 
     python3 chip_smoke.py
@@ -23,9 +22,8 @@ Phases, each timed; any failure raises (exit code != 0, no result line):
              diagonal walked plus its ops row) and its share, and K2's
              longest walk (the most steps of one problem: its serial
              floor). Then at the problem counts the engine launches for
-             the class (EngineConfig.dp_classes: full and residue chunks,
-             and each chunk's slice on one of phase 13's N_MESH mesh
-             entries), on the first problems of the set: K1 and K2
+             the class (EngineConfig.dp_classes: full and residue
+             chunks), on the first problems of the set: K1 and K2
              bit-exact vs plain, each kernel alone, K1's bound (from those
              problems' band cells), K2's walk and bound
   4 world    the fc_aln benchmark world (seed 123, 250k pairs, ~379k
@@ -65,8 +63,7 @@ Phases, each timed; any failure raises (exit code != 0, no result line):
              the BAM records equal an uncompacted run's and an op-by-op
              run's
  10 onchip   ops.onchip_check.run_onchip_parity on the card: K1 + K2 vs the
-             scalar oracle, realigner and contig profiles at 176x256/W256,
-             and the sharded DP over the mesh [cuda:0, cuda:0] vs one device
+             scalar oracle, realigner and contig profiles at 176x256/W256
  11 fc_sv    the port's fc_sv entry point (--device cuda) on the bench
              world's BAM of the last timed depth-3 pass: its VCF records equal
              an fc_sv with the inline native DP on the same inputs, at least
@@ -78,23 +75,12 @@ Phases, each timed; any failure raises (exit code != 0, no result line):
              (seed 77, 4 DEL/INS, 1,600 pairs on 200 kbp): result.vcf equals
              a second S5 over its realigned.bam with the inline DP, and at
              least half the planted SVs come back within 40 bp
- 13 multi    the multi-GPU slice on the bench world with one card: (a)
+ 13 multi    the fc_aln fan-out on the bench world with one card:
              parallel.aln_shard.run_aln_fanout with two fc_aln worker
              processes sharing the card (-b 8192, engine_tune.json dropped
              first), its merged BAM record-identical to the last depth-3
              pass's, its wall and reads/s beside the depth-3 median and the
-             host's CPU count; (b) the CLI path with AlignEngine(mesh=
-             [cuda:0, cuda:0]) (run_fc_aln(mesh=...): sharded front, chain
-             and K1/K2 DP) with a CUDA graph per mesh entry ("mesh") and
-             op by op ("mesh_ops", fuse_chain=False): a warm-up pass of
-             each, then N_MESH_TIMED counted passes of each in turns,
-             every BAM record-identical to the same depth-3 pass, reads/s,
-             split host timers, captures (none evicted), replays,
-             reserved GPU memory, the launch table (identical in both
-             modes); one replayed mesh batch under the sync debug mode (0
-             synchronizing calls), and a profiled mesh pass of each mode
-             (idle share); (c) check_sharded_dp over [cuda:0, cuda:0] on
-             256 fuzzed problems
+             host's CPU count
  14 chrom    the chromosome-scale world (world.build_chrom_world's recipe:
              seed 99, 2,000 DEL/INS/DUP SVs on chr1 60 Mbp + chr2 40 Mbp,
              error 0.01, auto first level) with its pairs cut to
@@ -126,22 +112,17 @@ Phases, each timed; any failure raises (exit code != 0, no result line):
              workers on the card, its VCF records equal one fc_sv's on
              the card over every region, PASS counted
  16 checks   both kernels launched in every counted path above (fc_aln
-             paths, fc_sv, run, the mesh engine, the chromosome and genome
-             worlds' fc_aln and fc_sv; counters reset just before each
+             paths, fc_sv, run, the chromosome and genome worlds' fc_aln
+             and fc_sv; counters reset just before each
              path and read just after); host fallback <= 5% of the reads
              with a k-mer hit on the bench world; no module of JAX or of
              the JAX package (pansvr_tpu) imported
-`python3 chip_smoke.py --mesh-cards N` runs phase 13 (b) alone over a
-mesh of one entry on each of the first N cards (mesh_cards_main).
 Prints a {"kernels": [...]} line (per kernel at the main shape: "ms" the
 wrapper's time, "kernel_ms" the raw launch's, "bound_ms" from this run's
 band cells, "per_pass_ms" the launches of a default fc_aln pass, each at
 its DP class and problem count, times the kernel alone there;
 "fc_sv_launches" those of phase 11's pass, "fc_sv_kernel_ms" the kernel
-alone on its first chunk, "mesh_launches" those of phase 13's counted
-data-mesh passes in both modes and "mesh_per_pass_ms" the kernel time of
-a pass with graphs, each launch at its size as phase 3 timed it;
-"chrom_launches" and
+alone on its first chunk, "chrom_launches" and
 "chrom_fc_sv_launches" those of phase 14's fc_aln and fc_sv,
 "genome_launches" and "genome_fc_sv_launches" those of phase 15's),
 then the last line
@@ -194,9 +175,8 @@ DP_SETS = ((48, 64, 64, ALN, 2048, 64), (96, 128, 128, ALN, 2048, 64),
            (576, 704, 192, SV, 256, 16))
 MAIN_SHAPE = (48, 64, 64)   # the main path's dominant DP chunk shape
 # timed fc_aln passes after the warm-up (the median, of two the slower,
-# is reported); with the mesh's counted passes, cut from 3 and 2 to keep
-# the script near half its time limit since the scale phases run their
-# passes twice
+# is reported); cut from 3 to keep the script near half its time limit
+# since the scale phases run their passes twice
 N_TIMED = 2
 N_OVERFLOW = 32_768
 N_UNIFORM_PAIRS = 12_288
@@ -204,15 +184,8 @@ UNIFORM_BATCH = 2048
 # phase 12's world: tests/test_pipeline.py's recipe
 RUN_WORLD = dict(seed=77, n_sv=4, n_pairs=1600, types=("DEL", "INS"),
                  chrom_lengths={"chr1": 200_000}, err_rate=0.0)
-# phase 13: fc_aln worker processes of the fan-out, mesh entries of the
-# data-mesh engine (all on the one card), problems of the sharded DP check
+# phase 13: fc_aln worker processes of the fan-out (on the one card)
 N_FANOUT = 2
-N_MESH = 2
-# the mesh engine's modes (a CUDA graph per entry, op by op) and its timed
-# passes of each, taken in turns after a warm-up pass of each
-MESH_MODES = (("mesh", True), ("mesh_ops", False))
-N_MESH_TIMED = 1
-N_SHARDED_DP = 256
 # phase 14: read pairs of the chromosome-scale world (its 100 Mbp genome
 # and 2,000 SVs whole), cut so that the phase takes about 2 min
 N_CHROM_PAIRS = 80_000
@@ -352,20 +325,13 @@ def max_abs_diff(x, y) -> int:
 def main_sizes(Q, T):
     """Problem counts the engine launches K1 and K2 at for a (Q, T) DP
     class: the full and the residue chunk of EngineConfig.dp_classes, for
-    the read class of the bench world (160) and the next one (256), and
-    the slice of each chunk that one entry of phase 13's data mesh
-    launches (the chunk cut over N_MESH entries, as the mesh engine cuts
-    it)."""
+    the read class of the bench world (160) and the next one (256)."""
     from pansvr_tpu_torch.align.engine import EngineConfig
-    from pansvr_tpu_torch.parallel.mesh import row_shards
 
     cfg = EngineConfig()
-    chunks = {n for rc in (160, 256)
-              for q, t, _, full, small in cfg.dp_classes(rc)
-              if (q, t) == (Q, T) for n in (full, small)}
-    slices = {hi - lo for n in chunks
-              for _, lo, hi in row_shards(n, [None] * N_MESH)}
-    return sorted(chunks | slices, reverse=True)
+    return sorted({n for rc in (160, 256)
+                   for q, t, _, full, small in cfg.dp_classes(rc)
+                   if (q, t) == (Q, T) for n in (full, small)}, reverse=True)
 
 
 def kernel_parity(dev):
@@ -459,8 +425,7 @@ def kernel_parity(dev):
         state16 = ec.packed_state(params, W)
         k1 = k1_bound(n_cells, B, Q, T, W, n_diag_pad, state16, int_rate)
         k2 = k2_bound(B, steps, n_diag_pad)
-        # the engine's chunk sizes of the class and the mesh entries'
-        # slices of them, on the first n problems
+        # the engine's chunk sizes of the class, on the first n problems
         by_n = {}
         for n in main_sizes(Q, T):
             sl = slice(0, n)
@@ -512,8 +477,8 @@ def kernel_parity(dev):
             f"ms = {k2[0] / tb_k_ms:.1%} of bound; wrapper {tb_ms:.4f} ms; "
             f"plain {tb_plain_ms:.1f} ms")
         for n, v in by_n.items():
-            log(f"  at {n} problems (an engine chunk or a mesh entry's "
-                f"slice): K1 and K2 bit-exact vs plain; K1 alone "
+            log(f"  at {n} problems (an engine chunk): K1 and K2 "
+                f"bit-exact vs plain; K1 alone "
                 f"{v['fwd_kernel_ms']:.4f} ms, bound {v['fwd_bound_ms']:.4g} "
                 f"ms = {v['fwd_bound_ms'] / v['fwd_kernel_ms']:.1%}; K2 alone "
                 f"{v['tb_kernel_ms']:.4f} ms, {v['tb_steps']} diagonals "
@@ -683,13 +648,12 @@ def bench_passes(w, tmp, dev, launches, n_reads, n_timed=N_TIMED):
 
 
 def profiled_phase(w, tmp, dev, what, n_reads=N_PROFILED,
-                   configs=(CONFIGS[0], OPS_CONFIG), mesh=None):
+                   configs=(CONFIGS[0], OPS_CONFIG)):
     """One depth-3 pass over the first n_reads reads of a world per
-    CUDA-graph mode (graphs, then op by op; over `mesh` when one is
-    given), each with torch.profiler started after the engine is built:
-    the card's busy time and idle share over the stream (over every card
-    of a mesh), its device kernels and the host's CUDA runtime calls a
-    batch. Returns {config: summary}."""
+    CUDA-graph mode (graphs, then op by op), each with torch.profiler
+    started after the engine is built: the card's busy time and idle
+    share over the stream, its device kernels and the host's CUDA
+    runtime calls a batch. Returns {config: summary}."""
     from pansvr_tpu_torch import world
     from pansvr_tpu_torch.align.engine import EngineConfig
 
@@ -701,8 +665,7 @@ def profiled_phase(w, tmp, dev, what, n_reads=N_PROFILED,
         r = profiled_fc_aln([
             "fc_aln", w["index"], head, w["header"], "-o",
             os.path.join(tmp, f"prof_{what}_{name}.bam"), "-r", w["status"],
-            "-b", str(BATCH), "--device", dev.type], EngineConfig(**cfg),
-            mesh=mesh)
+            "-b", str(BATCH), "--device", dev.type], EngineConfig(**cfg))
         b = max(r["batches"], 1)
         calls = r["runtime_calls"]
         launch_calls = sum(v[0] for k, v in calls.items()
@@ -720,10 +683,10 @@ def profiled_phase(w, tmp, dev, what, n_reads=N_PROFILED,
     return out
 
 
-def sync_counts(w, dev, n=BATCH, configs=GRAPH_CONFIGS, mesh=None) -> dict:
+def sync_counts(w, dev, n=BATCH, configs=GRAPH_CONFIGS) -> dict:
     """Phase 6: stream syncs PyTorch reports for one n-read batch per
-    configuration (over `mesh` when one is given; after three warm-up
-    batches), and the engine's event waits. Returns {config: (syncs,
+    configuration (after three warm-up batches), and the engine's event
+    waits. Returns {config: (syncs,
     captures in that batch)}."""
     import torch
 
@@ -735,7 +698,7 @@ def sync_counts(w, dev, n=BATCH, configs=GRAPH_CONFIGS, mesh=None) -> dict:
     names = world.header_names(w["header"])
     out = {}
     for name, cfg in configs:
-        eng = AlignEngine(idx, ori_chrom_names=names, device=dev, mesh=mesh,
+        eng = AlignEngine(idx, ori_chrom_names=names, device=dev,
                           config=EngineConfig(**cfg))
         for _ in range(3):     # K settles and every shape set is captured
             eng.align_batch(seqs[:n], oris[:n])
@@ -845,25 +808,14 @@ def uniform_phase(w, tmp, dev, launches, n_pairs=N_UNIFORM_PAIRS,
         "uncompacted run and to the op-by-op run; " + split_line(eng.prof))
 
 
-def one_card_mesh(dev):
-    """The data mesh of phases 10 and 13: N_MESH entries of one device."""
-    import torch
-
-    return [torch.device(dev.type, 0) if dev.type == "cuda" else dev] * N_MESH
-
-
 def onchip_phase(dev):
-    """Phase 10: the port's self-check on the card (the sharded DP over a
-    mesh of N_MESH entries of the card)."""
+    """Phase 10: the port's self-check on the card."""
     from pansvr_tpu_torch.ops.onchip_check import run_onchip_parity
 
-    out = run_onchip_parity(quick=False, device=dev.type,
-                            mesh=one_card_mesh(dev))
-    if not (out["extd2_aln"] and out["extd2_sv"] and out["sharded_dp"]):
+    out = run_onchip_parity(quick=False, device=dev.type)
+    if not (out["extd2_aln"] and out["extd2_sv"]):
         raise AssertionError(f"onchip self-check checked no case: {out}")
-    log(f"onchip self-check passed on the card, cases per profile: {out} "
-        f"(sharded_dp: the DP over a mesh of {N_MESH} entries of the card "
-        "vs one device)")
+    log(f"onchip self-check passed on the card, cases per profile: {out}")
     return out
 
 
@@ -1037,113 +989,14 @@ def run_phase(tmp, dev, launches):
     return dict(wall_s=wall, records=len(calls), hits=hits)
 
 
-def mesh_phase(w, tmp, dev, launches, ref, n_pr, mesh) -> dict:
-    """Phase 13 (b): the CLI path over `mesh` with a CUDA graph per entry
-    and op by op, a warm-up pass of each, then N_MESH_TIMED counted
-    passes of each in turns; every BAM record-identical to the reference
-    pass `ref`, the launch tables identical; then one replayed mesh
-    batch under the sync debug mode and a profiled pass of each mode.
-    Returns the summary."""
-    import torch
-
-    from pansvr_tpu_torch.align.engine import EngineConfig
-    from pansvr_tpu_torch.cli.main import parse_args, run_fc_aln
-
-    out = {}
-
-    def mesh_pass(path, fuse):
-        return run_fc_aln(parse_args([
-            "fc_aln", w["index"], w["signal"], w["header"], "-o", path,
-            "-r", w["status"], "-b", str(BATCH)]), mesh=mesh,
-            config=EngineConfig(fuse_chain=fuse))
-
-    # a CUDA graph per mesh entry (fuse_chain) and op by op, in turns
-    for name, fuse in MESH_MODES:
-        mesh_pass(os.path.join(tmp, f"{name}_warm.bam"), fuse)
-    runs = {name: dict(walls=[], reserved_mib=0.0) for name, _ in MESH_MODES}
-    cards = list(dict.fromkeys(mesh)) if dev.type == "cuda" else []
-    for _ in range(N_MESH_TIMED):
-        for name, fuse in MESH_MODES:
-            r = runs[name]
-            r["bam"] = os.path.join(tmp, f"{name}.bam")
-            for d in cards:
-                torch.cuda.synchronize(d)
-                with torch.cuda.device(d):
-                    torch.cuda.empty_cache()
-                torch.cuda.reset_peak_memory_stats(d)
-            t = time.perf_counter()
-            eng = counted(launches, name,
-                          lambda: mesh_pass(r["bam"], fuse))
-            for d in cards:
-                torch.cuda.synchronize(d)
-            # reserved on every card of the mesh together
-            r["reserved_mib"] = max(r["reserved_mib"], sum(
-                torch.cuda.max_memory_reserved(d) for d in cards) / 2**20)
-            r["walls"].append(time.perf_counter() - t)
-            r["prof"] = {k: round(v, 4) for k, v in sorted(eng.prof.items())}
-    for name, fuse in MESH_MODES:
-        r = runs[name]
-        r["median_s"] = sorted(r["walls"])[len(r["walls"]) // 2]
-        out[f"{name}_reads_per_s"] = n_pr / r["median_s"]
-        n_rec = same_bam(ref["bam"], r["bam"], f"{name}: mesh of {len(mesh)} "
-                         "entries vs the depth-3 pass")
-        p = r["prof"]
-        graphs = fuse and dev.type == "cuda"
-        if graphs and not (p.get("n_graph_capture")
-                           and p.get("n_graph_replay")):
-            raise AssertionError(f"{name}: no CUDA graph captured or "
-                                 f"replayed: {p}")
-        if p.get("n_graph_evict"):
-            raise AssertionError(f"{name}: {p['n_graph_evict']} graphs "
-                                 "evicted")
-        log(f"data-mesh engine, {name} ({len(mesh)} entries on "
-            f"{len(set(mesh))} card(s), "
-            f"{'a CUDA graph per entry' if graphs else 'op by op'}, host "
-            f"collect, no compaction, host DP fill): passes " + ", ".join(
-                f"{x:.3f} s = {n_pr / x:.1f} reads/s" for x in r["walls"])
-            + f"; median {out[f'{name}_reads_per_s']:.1f} reads/s; peak GPU "
-            f"memory reserved {r['reserved_mib']:.1f} MiB (the mesh's "
-            f"cards together); {n_rec} BAM "
-            f"records identical to the depth-3 pass's; launches over "
-            f"{N_MESH_TIMED} passes {launches[name]}, by (kernel, Tmax, W, "
-            f"problems) {LAUNCH_SHAPES[name]}")
-        log(f"split host timers of the last {name} pass (s): "
-            + split_line(p))
-        log(f"engine phases of the last {name} pass (s) and counts {p}")
-    if LAUNCH_SHAPES["mesh"] != LAUNCH_SHAPES["mesh_ops"]:
-        raise AssertionError(
-            f"mesh kernel launches differ with and without CUDA graphs: "
-            f"{LAUNCH_SHAPES['mesh']} vs {LAUNCH_SHAPES['mesh_ops']}")
-    log(f"mesh kernel launch table identical with a CUDA graph per entry "
-        f"and op by op; reads/s graphs / op by op "
-        f"{out['mesh_reads_per_s'] / out['mesh_ops_reads_per_s']:.4f}")
-    if dev.type == "cuda":
-        modes = [(name, dict(fuse_chain=fuse)) for name, fuse in MESH_MODES]
-        out["mesh_syncs"] = sync_counts(w, dev, configs=modes[:1],
-                                        mesh=mesh)["mesh"]
-        if out["mesh_syncs"] != (0, 0):
-            raise AssertionError(f"a replayed mesh batch made (syncs, "
-                                 f"captures) {out['mesh_syncs']}")
-        out["mesh_profiled"] = profiled_phase(
-            w, tmp, dev, f"mesh_{len(mesh)}", configs=modes, mesh=mesh)
-    return out
-
-
-def multi_phase(w, tmp, dev, launches, bench, n_reads):
-    """Phase 13: the fc_aln fan-out with N_FANOUT workers on the card, the
-    CLI path over a data mesh of N_MESH entries of the card with a CUDA
-    graph per entry and op by op, in turns, and check_sharded_dp there.
-    Every BAM must equal the last depth-3 pass's. Returns the phase's
+def multi_phase(w, tmp, dev, bench, n_reads):
+    """Phase 13: the fc_aln fan-out with N_FANOUT workers on the card; its
+    BAM must equal the last depth-3 pass's. Returns the phase's
     summary."""
-    import numpy as np
-
-    from pansvr_tpu_torch.ops.onchip_check import (
-        ALN, _fuzz_pairs, check_sharded_dp)
     from pansvr_tpu_torch.parallel.aln_shard import run_aln_fanout
 
     ref = bench[CONFIGS[0][0]]
     n_pr = n_reads // 2 * 2
-    mesh = one_card_mesh(dev)
     out = dict(depth3_reads_per_s=ref["reads_per_s"], cpus=os.cpu_count())
 
     drop_tuning(w)
@@ -1164,18 +1017,6 @@ def multi_phase(w, tmp, dev, launches, bench, n_reads):
         f"process's depth-3 median {ref['reads_per_s']:.1f} reads/s in this "
         f"call; {os.cpu_count()} CPUs; {n_rec} BAM records identical to the "
         "depth-3 pass's")
-
-    out.update(mesh_phase(w, tmp, dev, launches, ref, n_pr, mesh))
-
-    # the fuzzed pairs that fit the check's 176 x 256 class
-    pairs = [(q, t) for q, t in _fuzz_pairs(np.random.default_rng(6),
-                                            N_SHARDED_DP) if len(q) <= 176]
-    out["sharded_dp"] = check_sharded_dp(pairs, ALN, devices=mesh)
-    if not out["sharded_dp"]:
-        raise AssertionError("check_sharded_dp checked no case")
-    log(f"check_sharded_dp over {N_MESH} entries of the card: "
-        f"{out['sharded_dp']} problems, packed rows and ops bit-identical "
-        "to one device's")
     return out
 
 
@@ -1616,7 +1457,7 @@ def main():
         secs["run"] = time.perf_counter() - t
 
         t = time.perf_counter()
-        multi_phase(w, tmp, dev, launches, bench, n_reads)
+        multi_phase(w, tmp, dev, bench, n_reads)
         secs["multi"] = time.perf_counter() - t
 
         t = time.perf_counter()
@@ -1654,11 +1495,6 @@ def main():
     main_launches = launches[f"bench_{CONFIGS[0][0]}"]
     per_pass = per_pass_ms(rows, LAUNCH_SHAPES[f"bench_{CONFIGS[0][0]}"],
                            N_TIMED, CONFIGS[0][0])
-    mesh_pass = per_pass_ms(rows, LAUNCH_SHAPES["mesh"], N_MESH_TIMED,
-                            f"data mesh of {N_MESH} entries")
-    # the mesh's passes with a CUDA graph per entry and op by op
-    mesh_launches = {k: launches["mesh"][k] + launches["mesh_ops"][k]
-                     for k in ("extd2_fwd", "extd2_tb")}
     print(json.dumps({"kernels": [
         {"name": "extd2_fwd", "route": "cuda",
          "source": "pansvr_tpu_torch/csrc/extd2_fwd.cu",
@@ -1671,12 +1507,10 @@ def main():
          "bound_by": main_row["fwd_bound_by"], "library_ms": None,
          "per_pass_ms": per_pass["extd2_fwd"],
          "fc_sv_launches": launches["fc_sv"]["extd2_fwd"],
-         "mesh_launches": mesh_launches["extd2_fwd"],
          "chrom_launches": launches["chrom"]["extd2_fwd"],
          "chrom_fc_sv_launches": launches["chrom_fc_sv"]["extd2_fwd"],
          "genome_launches": launches["genome"]["extd2_fwd"],
          "genome_fc_sv_launches": launches["genome_fc_sv"]["extd2_fwd"],
-         "mesh_per_pass_ms": mesh_pass["extd2_fwd"],
          "fc_sv_kernel_ms": sv["first"]["fwd_kernel_ms"]},
         {"name": "extd2_tb", "route": "cuda",
          "source": "pansvr_tpu_torch/csrc/extd2_tb.cu",
@@ -1689,12 +1523,10 @@ def main():
          "bound_by": main_row["tb_bound_by"], "library_ms": None,
          "per_pass_ms": per_pass["extd2_tb"],
          "fc_sv_launches": launches["fc_sv"]["extd2_tb"],
-         "mesh_launches": mesh_launches["extd2_tb"],
          "chrom_launches": launches["chrom"]["extd2_tb"],
          "chrom_fc_sv_launches": launches["chrom_fc_sv"]["extd2_tb"],
          "genome_launches": launches["genome"]["extd2_tb"],
          "genome_fc_sv_launches": launches["genome_fc_sv"]["extd2_tb"],
-         "mesh_per_pass_ms": mesh_pass["extd2_tb"],
          "fc_sv_kernel_ms": sv["first"]["tb_kernel_ms"]},
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -1702,57 +1534,5 @@ def main():
         "count": torch.cuda.device_count()}}), flush=True)
 
 
-def mesh_cards_main(n_cards: int) -> None:
-    """`python3 chip_smoke.py --mesh-cards N`: phase 13 (b) alone over a
-    data mesh of one entry on each of the first N cards (needs N cards):
-    the kernels built, the bench world, a depth-3 pass on cuda:0 (a
-    warm-up, then one counted pass: the records every mesh pass must
-    give, and the single card's rate in the same call), then
-    mesh_phase; both kernels launched in both modes."""
-    import torch
-
-    from pansvr_tpu_torch import _build, world
-
-    for line in subprocess.run(
-            ["nvidia-smi", "--query-gpu=name,power.limit",
-             "--format=csv,noheader"], capture_output=True, text=True,
-            check=True).stdout.split("\n"):
-        if line.strip():
-            print(line.strip(), flush=True)
-    if torch.cuda.device_count() < n_cards:
-        raise RuntimeError(f"{n_cards} cards asked for, "
-                           f"{torch.cuda.device_count()} visible")
-    dev = torch.device("cuda")
-    _build.load_kernels()
-    mesh = [torch.device("cuda", i) for i in range(n_cards)]
-    launches = {}
-    with tempfile.TemporaryDirectory(prefix="pansvr_smoke_") as tmp:
-        w = world.build_bench_world(os.path.join(tmp, "world"))
-        n_pr = sum(1 for _ in open(w["signal"])) // 4 // 2 * 2
-        ref = dict(bam=os.path.join(tmp, "ref.bam"))
-        fc_aln(w, w["signal"], os.path.join(tmp, "ref_warm.bam"), "cuda")
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        eng = fc_aln(w, w["signal"], ref["bam"], "cuda")
-        torch.cuda.synchronize()
-        ref["reads_per_s"] = n_pr / (time.perf_counter() - t)
-        log(f"depth-3 pass on cuda:0 with graphs: {ref['reads_per_s']:.1f} "
-            f"reads/s; " + split_line(eng.prof))
-        out = mesh_phase(w, tmp, dev, launches, ref, n_pr, mesh)
-    for path, counts in launches.items():
-        for k in ("extd2_fwd", "extd2_tb"):
-            if counts[k] <= 0:
-                raise AssertionError(f"{k} was not launched on path {path}")
-    print(json.dumps(dict(out, cards=n_cards,
-                          depth3_reads_per_s=ref["reads_per_s"],
-                          launches=launches)), flush=True)
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}), flush=True)
-
-
 if __name__ == "__main__":
-    if sys.argv[1:2] == ["--mesh-cards"]:
-        mesh_cards_main(int(sys.argv[2]))
-    else:
-        main()
+    main()

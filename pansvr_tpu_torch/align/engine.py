@@ -43,23 +43,8 @@ contract; reads over the device caps (lane budgets, seeds, chain width,
 read length) take that exact host path. The native glue library is
 required.
 
-With a data mesh (AlignEngine(mesh=[devices]), parallel/mesh.py) the
-engine runs the JAX engine's mesh path: the front and the chain per
-mesh entry on its contiguous slice of the batch's rows (front_program,
-the JAX _sharded_front + _sharded_chain), each DP chunk's problems cut
-into contiguous slices, one per entry, K1 + K2 under each entry's device
-guard (the JAX _sharded_dp). With fuse_chain on cards each entry replays
-its own CUDA graphs (a GraphCache per distinct device, keyed by entry);
-op by op the front runs eagerly per entry and the DP through
-dp_chunk_sharded. Each entry's results start their copy to the host
-behind it, one event per device, and the host joins them in row
-(problem) order. As in the JAX mesh path there is no device collect
-(collect="device" raises), no row compaction, and the DP inputs are
-filled on the host (gb.fill_dp); the chain keeps the speculative width
-with its re-chain (the output is the same as the JAX path's width from
-the synced seed count). A mesh entry's flat lane pool covers its own
-rows, so it can flag other overflow rows than one device does; flagged
-rows take the exact host path either way.
+An engine drives one device; several cards are served by the fc_aln
+fan-out (parallel/aln_shard.py), one process and one engine a card.
 """
 
 from __future__ import annotations
@@ -76,9 +61,8 @@ import numpy as np
 import torch
 
 from ..index.builder import RdBGIndex
-from ..index.device import device_guard, resolve_device, upload
+from ..index.device import resolve_device, to_device, upload
 from ..ops.extd2 import Extd2Params
-from ..parallel.mesh import canonical_mesh, gather, index_replicas, row_shards
 from ..utils import dna, memory
 from ..utils.trace import Spans
 from . import native_glue
@@ -98,22 +82,12 @@ from .programs import (
     ES_FIELDS,
     FRONT_SHAPES,
     GraphCache,
-    chain_at,
-    chain_pack,
     chain_program,
-    dp_chunk,
     dp_program,
-    dp_slice_program,
     front_parts,
     front_program,
     front_seeds,
 )
-
-# row axis of each host-collect chain tensor (chain_pack), for the gather
-# of a mesh's per-entry chains
-_CHAIN_ROW_AXIS = dict(p32=0, p16=1, p8=0, hits8=1, hscore=0)
-# ... and of what a mesh's front downloads per entry
-_FRONT_ROW_AXIS = dict(_CHAIN_ROW_AXIS, stats3=1)
 
 # consecutive batches that must ask for the same compaction budget
 # before it applies
@@ -159,11 +133,9 @@ class EngineConfig:
                                  # chain (+ collect) and each DP chunk
                                  # run as one CUDA graph per static
                                  # shape set, captured once and
-                                 # replayed (align/programs.py); on a
-                                 # mesh of cards one graph per entry.
+                                 # replayed (align/programs.py).
                                  # False enqueues them op by op. The CPU
-                                 # (and a mesh of CPU entries) runs them
-                                 # op by op either way
+                                 # runs them op by op either way
 
     @property
     def max_read_len(self) -> int:
@@ -193,21 +165,6 @@ class EngineConfig:
         classes = [c for c in classes[:-1]
                    if c[0] < dp_q and c[1] < dp_t] + [classes[-1]]
         return [(q, t, W, n, max(n // 4, 128)) for q, t, W, n in classes]
-
-
-def dp_chunk_sharded(mesh, qc, ql, tc, tl, params: Extd2Params, W: int):
-    """dp_chunk over a data mesh (the JAX _sharded_dp): host arrays qc
-    (B, Qmax), ql, tc (B, Tmax), tl cut into contiguous problem slices,
-    one per mesh entry; each entry's K1 + K2 run under its device guard;
-    ops and packed rows gathered in problem order on the first entry's
-    device."""
-    parts = []
-    for dev, lo, hi in row_shards(len(ql), mesh):
-        with device_guard(dev):
-            parts.append(dp_chunk(*(upload(a[lo:hi], dev)
-                                    for a in (qc, ql, tc, tl)), params, W))
-    return (gather([p[0] for p in parts], 0, mesh[0]),
-            gather([p[1] for p in parts], 1, mesh[0]))
 
 
 def chain_unpack(out: dict, B: int, K: int):
@@ -263,14 +220,13 @@ def _log(msg: str) -> None:
 
 
 class AlignEngine:
-    """Batched aligner on one device or a data mesh; produces
+    """Batched aligner on one device; produces
     SingleEndState lists compatible with align.host_align.PEScorer, or
     encoded BAM record blobs with set_native_emit."""
 
     def __init__(self, idx: RdBGIndex, params: AlignParams | None = None,
                  config: EngineConfig | None = None,
-                 ori_chrom_names: list[str] | None = None, device="cuda",
-                 mesh=None):
+                 ori_chrom_names: list[str] | None = None, device="cuda"):
         # wall seconds per engine phase and event counts, across batches,
         # each phase a span of utils.trace (index_upload: the index's
         # source arrays read and its tables derived on the device, with
@@ -294,18 +250,14 @@ class AlignEngine:
         self.prof["rss_start_gib"] = memory.peak_rss_gib()
         self._mem_snapshot("start")
         with self.tr.span("engine_build", "engine_build"):
-            self._build(idx, params, config, ori_chrom_names, device, mesh)
+            self._build(idx, params, config, ori_chrom_names, device)
         self.prof["rss_built_gib"] = memory.peak_rss_gib()
         self.prof["engine_rss_gib"] = self.prof["rss_built_gib"] \
             - self.prof["rss_start_gib"]
         self._mem_snapshot("built")
 
-    def _build(self, idx, params, config, ori_chrom_names, device, mesh):
-        # mesh: a list of devices (parallel.mesh.make_data_mesh); the
-        # engine's own device is then its first entry
-        self.mesh = None if mesh is None else canonical_mesh(mesh)
-        self.device = self.mesh[0] if mesh is not None \
-            else resolve_device(device)
+    def _build(self, idx, params, config, ori_chrom_names, device):
+        self.device = resolve_device(device)
         self._glue_lib = native_glue.get_lib()
         if self._glue_lib is None or not all(
                 hasattr(self._glue_lib, f)
@@ -317,14 +269,8 @@ class AlignEngine:
         self.idx = idx
         self.p = params or AlignParams()
         self.cfg = config or EngineConfig()
-        if self.mesh is not None and self.cfg.collect == "device":
-            raise ValueError("collect='device' is not available on a data "
-                             "mesh (the mesh path collects on the host)")
-        # one index replica per distinct device of the mesh
         with self.tr.span("index_upload", "index_upload"):
-            self._replicas = index_replicas(self.mesh or [self.device], idx,
-                                            self.tr)
-        self.didx = self._replicas[self.device]
+            self.didx = to_device(idx, self.device, self.tr)
         self.host = HostAligner(idx, self.p, ori_chrom_names=ori_chrom_names)
         self.sv_info = self.host.sv_info
         self.dp_params = Extd2Params(
@@ -354,15 +300,10 @@ class AlignEngine:
         self._comp_want_run = 0
         self._tier_window: list[tuple[int, int]] = []  # (n_fallback, n)
         self._fallback_warned = False
-        # the per-batch programs as CUDA graphs (fuse_chain on a card):
-        # one cache on one device, or one per distinct device of a mesh
-        # (keyed by mesh entry); None: enqueued op by op
-        graphs = self.cfg.fuse_chain and self.device.type == "cuda"
+        # the per-batch programs as CUDA graphs (fuse_chain on a card);
+        # None: enqueued op by op
         self._programs = GraphCache(self.device, self.tr) \
-            if graphs and self.mesh is None else None
-        self._mesh_programs = {d: GraphCache(d, self.tr)
-                               for d in dict.fromkeys(self.mesh)} \
-            if graphs and self.mesh is not None else None
+            if self.cfg.fuse_chain and self.device.type == "cuda" else None
         # the DP graphs' read-code input, one buffer per codes length
         self._codes_bufs: dict[int, torch.Tensor] = {}
         # the distinct static shape sets the engine keyed, front and DP
@@ -459,9 +400,8 @@ class AlignEngine:
 
     def _to_host(self, tensors: dict, host: dict) -> None:
         """Start non-blocking copies of device tensors into pinned host
-        tensors appended to host[k] (on the CPU: copies), so a later
-        replay of the program that wrote them cannot change what the
-        host reads. A mesh's entries each append their part."""
+        tensors host[k] (on the CPU: copies), so a later replay of the
+        program that wrote them cannot change what the host reads."""
         pinned = {}
         cuda = [k for k, t in tensors.items() if t.device.type == "cuda"]
         if cuda:
@@ -476,22 +416,19 @@ class AlignEngine:
                 h.copy_(t.contiguous(), non_blocking=True)
             else:
                 h = t.clone()
-            host.setdefault(k, []).append(h)
+            host[k] = h
 
-    def _event(self, host: dict, axes: dict | None = None, devices=None):
-        """(host, axes, events): one event recorded behind the copies on
-        each distinct CUDA device of `devices` (default the engine's);
-        _wait returns NumPy arrays once they have passed, the parts of a
-        name joined along axes[name]."""
-        evs = []
-        for d in dict.fromkeys(devices or [self.device]):
-            if d.type == "cuda":
-                # the copies run on the current stream of their tensors'
-                # device: the event goes behind them
-                ev = torch.cuda.Event()
-                ev.record(torch.cuda.current_stream(d))
-                evs.append(ev)
-        return host, axes, evs
+    def _event(self, host: dict):
+        """(host, event): an event recorded behind the copies on the
+        engine's card (None off a card); _wait returns NumPy arrays once
+        it has passed."""
+        ev = None
+        if self.device.type == "cuda":
+            # the copies run on the card's current stream: the event goes
+            # behind them
+            ev = torch.cuda.Event()
+            ev.record(torch.cuda.current_stream(self.device))
+        return host, ev
 
     def _download(self, tensors: dict):
         host = {}
@@ -499,13 +436,11 @@ class AlignEngine:
         return self._event(host)
 
     def _wait(self, handle) -> dict:
-        host, axes, evs = handle
-        for ev in evs:
+        host, ev = handle
+        if ev is not None:
             ev.synchronize()
             self.prof["n_event_waits"] += 1
-        return {k: v[0].numpy() if len(v) == 1 else
-                np.concatenate([t.numpy() for t in v], axes[k])
-                for k, v in host.items()}
+        return {k: v.numpy() for k, v in host.items()}
 
     # ------------------------------------------------------------------
     def align_batch(self, seqs: list[str], oris) -> list[SingleEndState]:
@@ -787,7 +722,7 @@ class AlignEngine:
 
     def _use_device_collect(self) -> bool:
         c = self.cfg.collect
-        if c == "host" or self.mesh is not None:
+        if c == "host":
             return False
         has = hasattr(self._glue_lib, "glue_collect_paths")
         if c == "device" and not has:
@@ -807,23 +742,6 @@ class AlignEngine:
         return front_seeds(self.didx, words, lens2, mask2, S0, S, M, n_ext,
                            nf_mult, comp)
 
-    def _chain_out(self, front: dict, K: int, n_pad: int, NC: int,
-                   NP: int) -> dict:
-        """Chain at width K over the front's seeds, then chain extraction
-        (host collect) or select_and_paths (device collect, NC > 0): the
-        device tensors the host needs. On a mesh: per entry on its rows
-        (the JAX _sharded_chain), gathered in row order."""
-        if self.mesh is not None:
-            parts = []
-            for dev, es, is_str in zip(front["devs"], front["es"],
-                                       front["is_str"]):
-                with device_guard(dev):
-                    parts.append(chain_pack(*chain_at(es, is_str, K)))
-            return {k: gather([p[k] for p in parts], ax, self.device)
-                    for k, ax in _CHAIN_ROW_AXIS.items()}
-        return chain_program(front["es"], front["is_str"], front["rid"],
-                             front["active"], K, n_pad, NC, NP)
-
     def _run_front(self, host: dict, shapes: dict) -> dict:
         """front_program on the batch's host arrays: uploaded and enqueued
         op by op, or copied into the inputs of the shape set's CUDA graph
@@ -836,48 +754,6 @@ class AlignEngine:
         return self._programs.run(
             key, functools.partial(front_program, self.didx, shapes=shapes),
             self._pinned(host))
-
-    def _mesh_front(self, prep, shapes: dict):
-        """front_program without the DP's codes per mesh entry on its
-        contiguous slice of the batch's rows (the JAX _sharded_front +
-        _sharded_chain; comp, NC and NP are 0): the entry's CUDA graph
-        replayed, or enqueued op by op. Each entry's chain tensors start
-        their copy to the host right behind it. Returns (what a re-chain
-        reads: the entries' devices, seeds and is_str, es None where the
-        width cannot miss; the chain's download handle)."""
-        host = {k: prep.pop(k) for k in ("words", "lens2", "mask2",
-                                         "is_str2")}
-        prep.pop("act_pad")
-        key = tuple(shapes[k] for k in FRONT_SHAPES)
-        keep = shapes["K"] < min(shapes["S"], 32)
-        front = dict(devs=[], es=[], is_str=[]) if keep else dict(es=None)
-        chain = {}
-        if self._mesh_programs is not None:
-            host = self._pinned(host)
-        for e, (dev, lo, hi) in enumerate(row_shards(len(host["words"]),
-                                                     self.mesh)):
-            part = {k: v[lo:hi] for k, v in host.items()}
-            fn = functools.partial(front_program, self._replicas[dev],
-                                   shapes=shapes, codes=False)
-            ekey = self._keyed(("front", e, hi - lo, *key))
-            with device_guard(dev):
-                if self._mesh_programs is None:
-                    out = fn({k: upload(v, dev) for k, v in part.items()})
-                else:
-                    out = self._mesh_programs[dev].run(ekey, fn, part)
-                ch, es, is_str, _, _ = front_parts(out)
-                self._to_host(ch, chain)
-                if keep:
-                    if self._mesh_programs is not None:
-                        # the next batches' fronts replay this graph
-                        # before this batch's chain is final
-                        es = es._replace(**{f: getattr(es, f).clone()
-                                            for f in ES_FIELDS})
-                        is_str = is_str.clone()
-                    front["devs"].append(dev)
-                    front["es"].append(es)
-                    front["is_str"].append(is_str)
-        return front, self._event(chain, _FRONT_ROW_AXIS, self.mesh)
 
     def _dispatch_front(self, prep):
         """Enqueue the batch's front, chain at the speculative width and
@@ -894,44 +770,38 @@ class AlignEngine:
         M = max(cfg.mem_slots, (S0 + 1 + 15) // 16 * 16)
         S = cfg.max_seeds
         K = self._k_spec
-        # a mesh neither compacts nor collects on the device
-        comp = 0 if self.mesh is not None \
-            else self._compaction_budget(2 * n_pad)
+        comp = self._compaction_budget(2 * n_pad)
         NC, NP = self._collect_budgets(n_pad) \
             if self._use_device_collect() else (0, 0)
         shapes = dict(L=L, n_pad=n_pad, S0=S0, S=S, M=M, n_ext=n_ext,
                       nf_mult=cfg.nf_mult, comp=comp, K=K, NC=NC, NP=NP)
-        if self.mesh is not None:
-            front, chain = self._mesh_front(prep, shapes)
-            prep.update(front=front, chain=chain, codes_flat=None)
-        else:
-            host = {k: prep.pop(k)
-                    for k in ("words", "lens2", "mask2", "is_str2", "act_pad")}
-            if not NC:
-                del host["act_pad"]
-            out = self._run_front(host, shapes)
-            chain, es, is_str, rid, active = front_parts(out)
-            if rid is not None:
-                self.prof["n_compacted"] += 1
-            prep["chain"] = self._download(chain)
-            # what outlives this batch's replay (the next batches' fronts
-            # replay the same graph before this batch's chain is final):
-            # the DP's read codes, and, where the chain width can miss
-            # (K < min(S, 32)), the seeds a re-chain at full width reads
-            codes = out["codes"]
-            front = dict(es=es, is_str=is_str, rid=rid, active=active) \
-                if K < min(S, 32) else dict(es=None)
-            if self._programs is not None:
-                codes = codes.clone()
-                if front["es"] is not None:
-                    front = dict(
-                        es=es._replace(**{f: getattr(es, f).clone()
-                                          for f in ES_FIELDS}),
-                        is_str=is_str.clone(),
-                        rid=None if rid is None else rid.clone(),
-                        active=None if active is None else active.clone())
-            prep.update(front=front, codes_flat=codes)
-        prep.update(shapes=dict(M=M, S=S, K=K, comp=comp, NC=NC, NP=NP),
+        host = {k: prep.pop(k)
+                for k in ("words", "lens2", "mask2", "is_str2", "act_pad")}
+        if not NC:
+            del host["act_pad"]
+        out = self._run_front(host, shapes)
+        chain, es, is_str, rid, active = front_parts(out)
+        if rid is not None:
+            self.prof["n_compacted"] += 1
+        prep["chain"] = self._download(chain)
+        # what outlives this batch's replay (the next batches' fronts
+        # replay the same graph before this batch's chain is final):
+        # the DP's read codes, and, where the chain width can miss
+        # (K < min(S, 32)), the seeds a re-chain at full width reads
+        codes = out["codes"]
+        front = dict(es=es, is_str=is_str, rid=rid, active=active) \
+            if K < min(S, 32) else dict(es=None)
+        if self._programs is not None:
+            codes = codes.clone()
+            if front["es"] is not None:
+                front = dict(
+                    es=es._replace(**{f: getattr(es, f).clone()
+                                      for f in ES_FIELDS}),
+                    is_str=is_str.clone(),
+                    rid=None if rid is None else rid.clone(),
+                    active=None if active is None else active.clone())
+        prep.update(front=front, codes_flat=codes,
+                    shapes=dict(M=M, S=S, K=K, comp=comp, NC=NC, NP=NP),
                     read_class=L)
         return prep
 
@@ -1014,8 +884,9 @@ class AlignEngine:
                                    "but the front's seeds were not kept")
             K = min(sh["S"], 32)
             with tr.span("rechain", "sync_chain"):
-                out.update(self._wait(self._download(
-                    self._chain_out(front, K, n_pad, NC, NP))))
+                out.update(self._wait(self._download(chain_program(
+                    front["es"], front["is_str"], front["rid"],
+                    front["active"], K, n_pad, NC, NP))))
             self.prof["n_rechain"] += 1
 
         fallback = set(int(r) % n_pad for r in np.nonzero(overflow > 0)[0])
@@ -1163,7 +1034,7 @@ class AlignEngine:
         bud = np.nonzero(stats3[0] & BUDGET_OVERFLOW)[0] if comp else ()
         nb_reads = len({int(r) % n_pad for r in bud})
         self.prof["n_budget_fallback"] += nb_reads
-        if cfg.compact_div > 1 and self.mesh is None:
+        if cfg.compact_div > 1:
             if len(bud):
                 self._drop_compaction()
             else:
@@ -1234,48 +1105,28 @@ class AlignEngine:
             key, lambda inputs: fn(inputs["meta"]), {"meta": meta},
             fixed=(codes, self.didx.ref_words))
 
-    def _mesh_dp(self, filled, n: int, W: int, k: int, host: dict) -> None:
-        """One host-filled DP chunk (qc, ql, tc, tl) cut into contiguous
-        problem slices, one per mesh entry (the JAX _sharded_dp), each
-        copied into its entry's CUDA graph of K1 + K2 and replayed (key:
-        entry, Qmax, Tmax, W, slice size). Each entry's ops (its rows of
-        the chunk's first n problems) and packed rows start their copy
-        to the host right behind its replay."""
-        chunk = self._pinned(dict(zip(("qc", "ql", "tc", "tl"), filled)))
-        cq, ct = chunk["qc"].shape[1], chunk["tc"].shape[1]
-        fn = functools.partial(dp_slice_program, params=self.dp_params, W=W)
-        for e, (dev, lo, hi) in enumerate(row_shards(len(chunk["ql"]),
-                                                     self.mesh)):
-            key = self._keyed(("dp", e, cq, ct, W, hi - lo))
-            with device_guard(dev):
-                out = self._mesh_programs[dev].run(
-                    key, fn, {name: a[lo:hi] for name, a in chunk.items()})
-                rows = max(min(hi, n) - lo, 0)
-                self._to_host({f"ops{k}": out["ops"][:rows],
-                               f"packed{k}": out["packed"]}, host)
-
     def _dispatch_dp_from_gb(self, pend, gb, on_dp_dispatched=None):
         """DP over three size classes, each size-sorted and cut into
         full chunks plus quarter-size residue chunks; every chunk's
-        request metadata goes up in one copy (on a mesh: each chunk's
-        host-filled codes, sliced over the entries), each chunk's results
-        start their copy to the host right behind it, and one event (a
-        mesh: one a device) goes behind the last. dp_dispatch = dp_layout
-        (the host layout) + dp_enqueue (the rest)."""
+        request metadata goes up in one copy, each chunk's results start
+        their copy to the host right behind it, and one event goes behind
+        the last. dp_dispatch = dp_layout (the host layout) + dp_enqueue
+        (the rest)."""
         tr = self.tr
         with tr.span("dp_dispatch", batch=pend.get("bid", -1),
                      retry=pend.get("retry", 0)):
             with tr.span("dp_layout", "dp_layout", "dp_dispatch"):
                 layout, meta, big, ql_all, tl_all = self._dp_layout(pend, gb)
             with tr.span("dp_enqueue", "dp_enqueue", "dp_dispatch"):
-                chunks, handle = self._dp_enqueue(pend, gb, layout, meta)
+                chunks, handle = self._dp_enqueue(pend, layout, meta)
         if on_dp_dispatched is not None:
             on_dp_dispatched()
         pend["dp"] = ("native", gb, chunks, handle, big, ql_all, tl_all)
 
     def _dp_layout(self, pend, gb):
-        """(chunk layout, the chunks' request metadata or None, the
-        problems too big for any class, query and target lengths)."""
+        """(chunk layout, the chunks' request metadata (None without a
+        chunk), the problems too big for any class, query and target
+        lengths)."""
         classes = self.cfg.dp_classes(pend["read_class"])
         ql_all, tl_all = gb.req_sizes()
         assigned = np.full(gb.n_req, -1, np.int32)
@@ -1295,7 +1146,7 @@ class AlignEngine:
                 layout.append((cq, ct, W, members[c0 : c0 + size], size, off))
                 off += size
                 c0 += size
-        if layout and self.mesh is None:
+        if layout:
             meta5 = gb.req_meta()
             if meta5 is None:
                 raise RuntimeError(
@@ -1309,36 +1160,22 @@ class AlignEngine:
             meta = None
         return layout, meta, np.nonzero(assigned < 0)[0], ql_all, tl_all
 
-    def _dp_enqueue(self, pend, gb, layout, meta):
+    def _dp_enqueue(self, pend, layout, meta):
         """(each chunk's problems, the download handle of their results):
         the chunks enqueued or replayed."""
         chunks = []
-        host, axes = {}, {}
-        if layout and self.mesh is None:
+        host = {}
+        if layout:
             meta_dev = self._upload(meta)
             codes = self._dp_codes(pend["codes_flat"])
         for k, (cq, ct, W, mem, size, o) in enumerate(layout):
             chunks.append(mem)
-            axes.update({f"ops{k}": 0, f"packed{k}": 1})
-            if self._mesh_programs is not None:
-                self._mesh_dp(gb.fill_dp(mem, cq, ct, size), len(mem), W,
-                              k, host)
-                continue
-            if self.mesh is None:
-                res = self._run_dp(codes, meta_dev[:, o : o + size], cq, ct,
-                                   W, size)
-                ops, packed = res["ops"], res["packed"]
-            else:
-                for e, (_, lo, hi) in enumerate(row_shards(size, self.mesh)):
-                    self._keyed(("dp", e, cq, ct, W, hi - lo))
-                ops, packed = dp_chunk_sharded(
-                    self.mesh, *gb.fill_dp(mem, cq, ct, size),
-                    self.dp_params, W)
+            res = self._run_dp(codes, meta_dev[:, o : o + size], cq, ct, W,
+                               size)
             # packed whole (its columns past len(mem) are cut on the host)
-            self._to_host({f"ops{k}": ops[: len(mem)],
-                           f"packed{k}": packed}, host)
-        handle = self._event(host, axes, self.mesh) if layout \
-            else ({}, None, [])
+            self._to_host({f"ops{k}": res["ops"][: len(mem)],
+                           f"packed{k}": res["packed"]}, host)
+        handle = self._event(host) if layout else ({}, None)
         self.prof["n_dp_chunks"] += len(chunks)
         return chunks, handle
 

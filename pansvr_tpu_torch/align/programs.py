@@ -11,15 +11,6 @@ as one program). Each is a pure function of its inputs here:
   dp_program(codes_flat, ref_words, meta, cq, ct, W, size, ...)
                                       -> {"ops": ..., "packed": ...}
 
-On a data mesh the same programs run per mesh entry on its slice of the
-rows (the JAX _sharded_front + _sharded_chain, without the DP's codes),
-and a DP chunk filled on the host runs per entry as
-
-  dp_slice_program({"qc", "ql", "tc", "tl"}, params, W)
-                                      -> {"ops": ..., "packed": ...}
-
-(the JAX _sharded_dp's body: K1 + K2 on the entry's problems).
-
 Run eagerly they enqueue their torch ops (and the K1/K2 launches) one by
 one; that is the engine's plain path (the CPU, and `fuse_chain=False`
 on a card). On a CUDA device the engine runs them through a GraphCache:
@@ -27,9 +18,7 @@ each static shape set (the JAX programs' static_argnames) is captured
 into one CUDA graph once, after an eager warm-up on a side stream, and
 replayed after that, so a batch's front costs one graph launch where
 it cost thousands of kernel launches. Every graph of a cache allocates
-from one shared memory pool. A mesh has one cache per distinct device,
-and its keys carry the mesh entry, so two entries on one card never
-replay the same graph.
+from one shared memory pool.
 
 A replay writes the same output tensors every time, so what the engine
 reads after a later replay of the same graph must be copied out first:
@@ -61,7 +50,6 @@ from ..ops.seeding import (
     merge_expand_device3,
     seed_reads_flat,
 )
-from ..parallel.mesh import front_stats
 
 _I32 = torch.int32
 _I64 = torch.int64
@@ -88,6 +76,17 @@ def unpack_codes(words: torch.Tensor, L: int) -> torch.Tensor:
     j = torch.arange(L, dtype=_I64, device=words.device)
     w = (words.to(_I64) & 0xFFFFFFFF)[:, j >> 4]
     return ((w >> ((15 - (j & 15)) * 2)) & 3).to(torch.uint8).reshape(-1)
+
+
+def front_stats(didx, words, lens, mask, S0: int, S: int, M: int,
+                n_ext: int, nf_mult: int):
+    """The uncompacted front: seed_reads_flat + merge_expand_device3, and
+    stats3 (3, rows) int32 [overflow, dropped, seed count]."""
+    sb = seed_reads_flat(didx, words, lens, mask, S0=S0, n_ext_steps=n_ext,
+                         M=M, nf_mult=nf_mult)
+    es = merge_expand_device3(sb, didx, S=S)
+    return es, torch.stack([sb.n_overflow, es.n_dropped,
+                            es.valid.sum(1).to(torch.int32)])
 
 
 def front_seeds(didx, words, lens2, mask2, S0, S, M, n_ext, nf_mult, comp):
@@ -159,8 +158,7 @@ def chain_program(es, is_str, rid, active, K: int, n_pad: int, NC: int,
     return out
 
 
-def front_program(didx, inputs: dict, shapes: dict,
-                  codes: bool = True) -> dict:
+def front_program(didx, inputs: dict, shapes: dict) -> dict:
     """One batch's front, chain at the speculative width K and collect:
     what _dispatch_front enqueues, minus its uploads and downloads.
 
@@ -172,8 +170,7 @@ def front_program(didx, inputs: dict, shapes: dict,
 
     Returns a flat dict: "chain/<name>" the tensors the host reads
     (stats3, then the chain pack or the collect lanes; "rid" of a
-    compacted host-collect front), "codes" the DP's flat read codes
-    (left out with codes=False: a mesh fills its DP on the host), and
+    compacted host-collect front), "codes" the DP's flat read codes, and
     what a re-chain at full width reads: "es/<field>" (ES_FIELDS),
     "is_str" (per chain row), "rid" and "active" (absent when None)."""
     g = shapes.__getitem__
@@ -190,8 +187,7 @@ def front_program(didx, inputs: dict, shapes: dict,
                           g("NC"), g("NP"))
     out = {"chain/stats3": stats3}
     out.update((f"chain/{k}", v) for k, v in chain.items())
-    if codes:
-        out["codes"] = unpack_codes(words, g("L"))
+    out["codes"] = unpack_codes(words, g("L"))
     out.update((f"es/{f}", getattr(es, f)) for f in ES_FIELDS)
     out["is_str"] = is_str
     if rid is not None:
@@ -266,15 +262,6 @@ def dp_program(codes_flat, ref_words, meta, cq: int, ct: int, W: int,
     qc, ql, tc, tl = dp_fill_meta(codes_flat, ref_words, meta[0], meta[1],
                                   meta[2], meta[3], meta[4], tru_len, cq, ct)
     ops, packed = dp_chunk(qc, ql, tc, tl, params, W)
-    return {"ops": ops, "packed": packed}
-
-
-def dp_slice_program(inputs: dict, params: Extd2Params, W: int) -> dict:
-    """A mesh entry's slice of a DP chunk filled on the host (the JAX
-    _sharded_dp's body): K1 + K2 on inputs qc (B, Qmax), ql, tc (B,
-    Tmax), tl. Returns {"ops", "packed"} as dp_program does."""
-    ops, packed = dp_chunk(inputs["qc"], inputs["ql"], inputs["tc"],
-                           inputs["tl"], params, W)
     return {"ops": ops, "packed": packed}
 
 

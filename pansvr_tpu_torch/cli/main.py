@@ -78,17 +78,16 @@ def _cmd_fc_signal(args):
             fh.write(stats.status_file_text())
 
 
-def run_fc_aln(args, config=None, mesh=None, tracer=None):
+def run_fc_aln(args, config=None, tracer=None):
     """signal FASTQ + index -> realigned BAM; returns the engine (its
     .prof holds the phase timers and counts, "stream_s" the wall of the
     stream after the engine is built). `config`: an
-    align.engine.EngineConfig (default: its defaults); `mesh`: a data
-    mesh (parallel.mesh.make_data_mesh) for the engine, which then
-    ignores args.device; `tracer`: a context (a torch.profiler.profile)
-    entered around the stream only, after the engine is built and the
-    index is on the device; with args.trace (a directory) the profile,
-    the caller's or one of the CPU and the card made here, goes to
-    args.trace/trace.json with the engine's spans (utils.trace.export)."""
+    align.engine.EngineConfig (default: its defaults); `tracer`: a
+    context (a torch.profiler.profile) entered around the stream only,
+    after the engine is built and the index is on the device; with
+    args.trace (a directory) the profile, the caller's or one of the CPU
+    and the card made here, goes to args.trace/trace.json with the
+    engine's spans (utils.trace.export)."""
     from ..align import native_glue
     from ..align.bam_out import EmitContext, min_filter_score
     from ..align.engine import AlignEngine
@@ -104,7 +103,7 @@ def run_fc_aln(args, config=None, mesh=None, tracer=None):
         if args.status_file else SignalStats(read_len=150, min_isize=200,
                                              max_isize=600)
     eng = AlignEngine(idx, config=config, ori_chrom_names=header.ref_names,
-                      device=args.device, mesh=mesh)
+                      device=args.device)
     tune_path = os.path.join(args.index_dir, "engine_tune.json") \
         if os.path.isdir(args.index_dir) else None
     if tune_path and eng.load_tuning(tune_path):
@@ -247,15 +246,17 @@ def _run_aln_stream(chunks_a, eng, pe, writer, ori_writer, header, filt,
                     batch_stream):
     """Consume align_stream batches, PE-score and write BAM records.
 
-    Emission runs on a single writer thread pipelined one batch behind
-    the engine (the reference's kt_pipeline step2 analog,
-    read_realignment.cpp:165-176): the Python emit work overlaps the
-    engine's GIL-released device waits, and single-thread writes keep
-    BAM record order deterministic.
+    With native emit enabled on the engine (the CLI's default),
+    align_stream yields encoded record blobs straight from C++
+    (byte-identical to the Python emit, tests/test_native_emit.py), and
+    each blob's BGZF write and compression run inline on the main
+    thread, in batch order (span bam_write).
 
-    With native emit enabled on the engine, align_stream yields encoded
-    record blobs straight from C++ (byte-identical to this path,
-    tests/test_native_emit.py) and only the BGZF write remains here."""
+    Otherwise the Python emit runs on a single thread pipelined one
+    batch behind the engine (the reference's kt_pipeline step2 analog,
+    read_realignment.cpp:165-176): it overlaps the engine's GIL-released
+    device waits, and one writing thread keeps the BAM record order
+    deterministic."""
     from collections import deque
     from concurrent.futures import ThreadPoolExecutor
 

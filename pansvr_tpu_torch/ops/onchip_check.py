@@ -9,11 +9,6 @@ versions, chip_smoke.py on the card. It checks the realigner's profile
 and the contig (fc_sv) profile at Q=176, T=256, W=256; the contig
 profile at that window runs the packed 16-bit instance of K1, a
 combination no fc_aln or fc_sv launch takes.
-
-check_sharded_dp holds the DP sharded over a data mesh (the engine's
-dp_chunk_sharded, the counterpart of the original's _sharded_dp) bit
-for bit against the single-device kernels; it checks 0 cases when fewer
-than two devices are visible and none are passed, as the original does.
 """
 
 from __future__ import annotations
@@ -112,39 +107,10 @@ def check_extd2(pairs, params, Q=176, T=256, W=256, device="cuda") -> int:
     return len(pairs)
 
 
-def check_sharded_dp(pairs, params, Q=176, T=256, W=256,
-                     devices=None) -> int:
-    """The DP sharded over `devices` (a data mesh; default every visible
-    card) vs the single-device kernels on the first of them: packed rows
-    and ops bit for bit. Returns the cases checked, 0 when fewer than
-    two devices are visible and none are passed."""
-    import torch
-
-    from ..align.engine import dp_chunk, dp_chunk_sharded
-    from ..parallel.mesh import canonical_mesh, make_data_mesh
-
-    if devices is None:
-        if torch.cuda.device_count() < 2:
-            return 0
-        devices = make_data_mesh()
-    mesh = canonical_mesh(devices)
-    # repeated up to a multiple of the mesh's entries (the original
-    # repeats up to n_dev x BLK, its per-shard lane block)
-    base = _pad_batch(pairs, Q, T)
-    B_pad = -(-len(pairs) // len(mesh)) * len(mesh)
-    batch = [np.resize(a, (B_pad,) + a.shape[1:]).copy() for a in base]
-    ops_s, packed_s = dp_chunk_sharded(mesh, *batch, params, W)
-    ops_1, packed_1 = dp_chunk(*(torch.from_numpy(a).to(mesh[0])
-                                 for a in batch), params, W)
-    assert torch.equal(packed_s, packed_1), "sharded DP packed rows"
-    assert torch.equal(ops_s, ops_1), "sharded DP op rows"
-    return len(batch[1])
-
-
 def run_onchip_parity(quick: bool = False, seed: int = 10,
-                      device="cuda", mesh=None) -> dict:
+                      device="cuda") -> dict:
     """The whole gate; returns a summary dict for logging (cases checked
-    per profile; sharded_dp over `mesh`, default every visible card)."""
+    per profile)."""
     rng = np.random.default_rng(seed)
     n_fuzz = 8 if quick else 48
     out = {}
@@ -152,7 +118,4 @@ def run_onchip_parity(quick: bool = False, seed: int = 10,
                                            else ()):
         pairs = _fuzz_pairs(rng, n_fuzz)
         out[f"extd2_{name}"] = check_extd2(pairs, params, device=device)
-    if not quick:
-        out["sharded_dp"] = check_sharded_dp(_fuzz_pairs(rng, 16), ALN,
-                                             devices=mesh)
     return out

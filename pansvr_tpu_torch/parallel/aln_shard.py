@@ -2,8 +2,8 @@
 
 Port of pansvr_tpu/parallel/aln_shard.py. The serial host fraction of
 the realignment stage is the ceiling of any multi-device deployment:
-the device work shards over a data mesh (parallel.mesh), but one Python
-host feeds it. This module is the kt_pipeline/kt_for process analog
+one Python host feeding several devices is bound by its one main thread
+and its GIL. This module is the kt_pipeline/kt_for process analog
 (read_realignment.cpp:98-176) at deployment granularity: the signal
 FASTQ splits into contiguous pair-aligned shards, one `pansvr_tpu_torch
 fc_aln --device D` subprocess per shard owns its own device plus ALL of

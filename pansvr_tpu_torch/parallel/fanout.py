@@ -4,11 +4,10 @@ reference's per-chromosome bash fan-out, panSVR_run.sh:61-91).
 The reference launches one fc_sv process per chromosome range and
 concatenates the VCF parts; here the chromosomes (the BAM header's, in
 order: the indices fc_sv's -S/-E select) are split into at most
-`n_shards` contiguous ranges balanced by SV regions
-(parallel.mesh.shard_chromosomes), one `pansvr_tpu_torch fc_sv -S lo
--E hi --device D` subprocess per range (inclusive ends), and the parts
-are merged in region order (parallel.mesh.merge_vcf_parts): the VCF of
-one fc_sv over every region. Every worker
+`n_shards` contiguous ranges balanced by SV regions (shard_chromosomes),
+one `pansvr_tpu_torch fc_sv -S lo -E hi --device D` subprocess per range
+(inclusive ends), and the parts are merged in region order
+(merge_vcf_parts): the VCF of one fc_sv over every region. Every worker
 runs its contig DP on `device`: a few processes can share one card (each
 launches its own chunks), and they share the kernel library in
 build/kernels/, which _build.py writes by an atomic rename.
@@ -20,7 +19,53 @@ import os
 import subprocess
 import sys
 
-from .mesh import merge_vcf_parts, shard_chromosomes
+
+def shard_chromosomes(counts: list[int], n_shards: int) -> list[range]:
+    """Contiguous, disjoint ranges of chromosome indices, one per fc_sv
+    worker that has work, balanced by counts[i] (the SV regions on
+    chromosome i): the -S lo -E hi-1 of each worker, whose ends fc_sv
+    includes (generateVCFoptions' -S/-E select chromosome indices, as
+    the reference's per-chromosome fan-out passes them). The JAX
+    package splits the anchor-contig count instead: its workers get
+    -S/-E ranges of contig ids that fc_sv reads as chromosome indices,
+    so one worker takes every chromosome below the first cut and a
+    chromosome at a cut goes to two workers (duplicate VCF records)."""
+    total = max(sum(counts), 1)
+    n_shards = max(1, n_shards)
+    shard_of, cum = [], 0
+    for c in counts:
+        shard_of.append(min(n_shards - 1, cum * n_shards // total))
+        cum += c
+    out = []
+    for k in range(n_shards):
+        idx = [i for i, s in enumerate(shard_of) if s == k]
+        if idx and sum(counts[i] for i in idx):
+            out.append(range(idx[0], idx[-1] + 1))
+    return out
+
+
+def _region_id(line: str) -> int:
+    """The SV region (anchor contig id) of an fc_sv VCF record: the first
+    '_' field of its ID (the anchor name's new_ref_id)."""
+    return int(line.split("\t", 3)[2].split("_", 1)[0])
+
+
+def merge_vcf_parts(part_paths: list[str], out_path: str):
+    """The per-shard VCF parts as one fc_sv over every region writes
+    them: the first part's header, then the records in region order
+    (stable), which is the order of an unsharded run's plans."""
+    header, records = [], []
+    for k, p in enumerate(part_paths):
+        with open(p) as fh:
+            for line in fh:
+                if not line.startswith("#"):
+                    records.append(line)
+                elif k == 0:
+                    header.append(line)
+    records.sort(key=_region_id)
+    with open(out_path, "w") as out:
+        out.writelines(header)
+        out.writelines(records)
 
 
 def regions_per_chromosome(anchors_fa: str, bam: str) -> list[int]:

@@ -46,16 +46,13 @@ of the stage: RUSAGE_CHILDREN of a wrapper around it):
              of its own); compare (f) holds its records to aln.bam's
   aln_cards  fc_aln over --cards N: the fan-out (parallel.aln_shard.
              run_aln_fanout, N worker processes, each pinned to its card
-             by CUDA_VISIBLE_DEVICES={shard}) -> aln_fanout.bam, then the
-             data-mesh engine over make_data_mesh(N) with its CUDA graphs
-             -> aln_mesh.bam, both over the whole signal FASTQ; each one's
-             BAM records must equal aln.bam's. Records reads/s, the
-             fan-out's split / worker / merge seconds and the mesh
-             engine's phase timers and graph counters. Raises when fewer
-             than N cards are visible; --share-card runs the N workers
-             and the N mesh entries all on the first card (host overlap,
-             not scaling: the report says which). On the CPU, N workers
-             with --device cpu and a mesh of N CPU entries
+             by CUDA_VISIBLE_DEVICES={shard}) -> aln_fanout.bam over the
+             whole signal FASTQ; its BAM records must equal aln.bam's.
+             Records reads/s and the fan-out's split / worker / merge
+             seconds. Raises when fewer than N cards are visible;
+             --share-card runs the N workers all on the first card (host
+             overlap, not scaling: the report says which). On the CPU, N
+             workers with --device cpu
   sort       io.bai.sort_bam + build_bai: aln.sorted.bam (+ .bai)
   sv         fc_sv over every SV region through the region fan-out
              (parallel.fanout.run_sv_fanout, --sv-shards worker processes,
@@ -153,7 +150,7 @@ def paths(out_dir: str) -> dict:
     return dict(world.chrom_paths(out_dir), **{
         k: os.path.join(out_dir, f) for k, f in (
             ("aln", "aln.bam"), ("aln_ops", "aln_ops.bam"),
-            ("aln_fanout", "aln_fanout.bam"), ("aln_mesh", "aln_mesh.bam"),
+            ("aln_fanout", "aln_fanout.bam"),
             ("sorted", "aln.sorted.bam"),
             ("vcf_card", "result.vcf"), ("vcf_shard", "result_shard.vcf"),
             ("vcf_inline", "result_inline.vcf"),
@@ -243,8 +240,7 @@ def inline_shard(p: dict, a) -> range:
     """The chromosome indices (-S, -E + 1) of the first of the world's
     inline_shards chromosome shards: the regions the inline DP and the
     JAX fc_sv run over."""
-    from .parallel.fanout import regions_per_chromosome
-    from .parallel.mesh import shard_chromosomes
+    from .parallel.fanout import regions_per_chromosome, shard_chromosomes
 
     return shard_chromosomes(
         regions_per_chromosome(p["anchors"], p["sorted"]),
@@ -508,42 +504,34 @@ def _child_aln_ops(p: dict, a) -> dict:
     return _aln_pass(p, a, OPS_CONFIG, p["aln_ops"], {"start": _rss_now()})
 
 
-def card_mesh(a) -> tuple[list, dict | None, str]:
-    """(the data mesh, the fan-out's worker_env, what the stage measures)
-    of --cards N on a.device. Raises when fewer than N cards are visible
-    (make_data_mesh would quietly return the ones there are), unless
-    --share-card puts every entry and worker on the first card."""
+def card_env(a) -> tuple[dict | None, str]:
+    """(the fan-out's worker_env, what the stage measures) of --cards N
+    on a.device. Raises when fewer than N cards are visible, unless
+    --share-card puts every worker on the first card."""
     import torch
 
     from .index.device import resolve_device
-    from .parallel.mesh import make_data_mesh
 
     n = a.cards
     dev = resolve_device(a.device)
     if dev.type != "cuda":
-        return make_data_mesh(n, dev), None, f"{n} {dev.type} entries"
+        return None, f"{n} {dev.type} workers"
     if a.share_card:
-        return [torch.device("cuda", 0)] * n, None, \
-            f"host overlap: {n} workers and {n} mesh entries on one card"
+        return None, f"host overlap: {n} workers on one card"
     have = torch.cuda.device_count()
     if have < n:
         raise RuntimeError(f"aln_cards: --cards {n} asks for {n} cards, "
                            f"{have} visible (--share-card runs them all on "
                            "the first card)")
-    return make_data_mesh(n), {"CUDA_VISIBLE_DEVICES": "{shard}"}, \
-        f"{n} cards"
+    return {"CUDA_VISIBLE_DEVICES": "{shard}"}, f"{n} cards"
 
 
 def _child_aln_cards(p: dict, a) -> dict:
-    """The fan-out and the data mesh over --cards N, each over the whole
-    signal FASTQ, each held to aln.bam's records."""
-    import torch
-
-    from .align.engine import EngineConfig
-    from .cli.main import parse_args, run_fc_aln
+    """The fan-out over --cards N, over the whole signal FASTQ, held to
+    aln.bam's records."""
     from .parallel.aln_shard import run_aln_fanout
 
-    mesh, worker_env, measures = card_mesh(a)
+    worker_env, measures = card_env(a)
     _drop_tuning(p["index"])
     split = {}
     t = time.perf_counter()
@@ -552,36 +540,15 @@ def _child_aln_cards(p: dict, a) -> dict:
                    worker_env=worker_env, device=a.device, prof=split)
     fan_s = time.perf_counter() - t
     fan_records = same_records(p["aln"], p["aln_fanout"], "aln_cards fan-out")
-
-    cards = list(dict.fromkeys(d for d in mesh if d.type == "cuda"))
-    if cards:
-        torch.cuda.init()   # before a call that names a card by its index
-    for d in cards:
-        torch.cuda.reset_peak_memory_stats(d)
-    _drop_tuning(p["index"])
-    t = time.perf_counter()
-    eng = run_fc_aln(parse_args([
-        "fc_aln", p["index"], p["signal"], p["header"], "-o", p["aln_mesh"],
-        "-b", str(BATCH), "-r", p["status"], "--device", a.device]),
-        config=EngineConfig(**CONFIGS[0][1]), mesh=mesh)
-    for d in cards:
-        torch.cuda.synchronize(d)
-    mesh_s = time.perf_counter() - t
-    mesh_records = same_records(p["aln"], p["aln_mesh"], "aln_cards mesh")
-    n_reads = int(eng.prof["n_reads"])
+    # the reads of its pairs (a trailing unpaired record is dropped)
+    with open(p["signal"], "rb") as fh:
+        n_reads = sum(1 for _ in fh) // 4 // 2 * 2
     return dict(
         cards=a.cards, share_card=bool(a.share_card), measures=measures,
         reads=n_reads,
         fanout=dict(workers=a.cards, wall_s=fan_s,
                     reads_per_s=n_reads / fan_s, records=fan_records,
-                    **split),
-        mesh=dict(entries=[str(d) for d in mesh], wall_s=mesh_s,
-                  reads_per_s=n_reads / mesh_s, records=mesh_records,
-                  prof={k: float(v) for k, v in sorted(eng.prof.items())},
-                  graphs=graph_report(eng),
-                  gpu_reserved_mib=sum(torch.cuda.max_memory_reserved(d)
-                                       for d in cards) / 2**20
-                  if cards else None))
+                    **split))
 
 
 def _child_sort(p: dict, a) -> dict:
@@ -600,8 +567,8 @@ def _pass_records(path: str) -> int:
 def _child_sv(p: dict, a) -> dict:
     from .cli.main import parse_args, run_fc_sv
     from .ops import extd2_cuda as ec
-    from .parallel.fanout import regions_per_chromosome, run_sv_fanout
-    from .parallel.mesh import shard_chromosomes
+    from .parallel.fanout import (
+        regions_per_chromosome, run_sv_fanout, shard_chromosomes)
 
     counts = regions_per_chromosome(p["anchors"], p["sorted"])
     t = time.perf_counter()
@@ -648,9 +615,8 @@ def _child_sv_inline(p: dict, a) -> dict:
                 n_pass=sum(v.passed for v in verdicts), dp=dp.prof)
 
 
-def profiled_fc_aln(argv: list, config, mesh=None) -> dict:
-    """fc_aln (the CLI's run_fc_aln on argv, over `mesh` when one is
-    given) with torch.profiler (CPU and CUDA) over its stream only,
+def profiled_fc_aln(argv: list, config) -> dict:
+    """fc_aln (the CLI's run_fc_aln on argv) with torch.profiler (CPU and CUDA) over its stream only,
     started after the engine is built and the index is on the card:
     kernel_bounds.device_activity of the stream (its wall with the
     profiler on), the batches, and the engine's graph counters."""
@@ -662,7 +628,7 @@ def profiled_fc_aln(argv: list, config, mesh=None) -> dict:
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     prof = torch.profiler.profile(activities=acts)
-    eng = run_fc_aln(parse_args(argv), config=config, mesh=mesh, tracer=prof)
+    eng = run_fc_aln(parse_args(argv), config=config, tracer=prof)
     p = eng.prof
     return dict(batches=int(p["n_batches"]),
                 n_graph_capture=int(p["n_graph_capture"]),
@@ -823,11 +789,11 @@ def parse_args(argv):
     ap.add_argument("--device", default="cuda",
                     help="device of fc_aln, fc_sv and parity's engine runs")
     ap.add_argument("--cards", type=int, default=2,
-                    help="cards of the aln_cards stage: fan-out workers and "
-                         "data-mesh entries (default 2)")
+                    help="cards of the aln_cards stage: fan-out workers "
+                         "(default 2)")
     ap.add_argument("--share-card", action="store_true",
-                    help="aln_cards: every worker and mesh entry on the "
-                         "first card (host overlap on one card)")
+                    help="aln_cards: every worker on the first card (host "
+                         "overlap on one card)")
     ap.add_argument("--child", choices=("gen",) + tuple(_CHILDREN),
                     help=argparse.SUPPRESS)
     a = ap.parse_args(argv)
@@ -935,14 +901,12 @@ def main(argv=None) -> int:
                       flush=True)
                 return 1
         if stage == "aln_cards":
-            fan, mesh = line["fanout"], line["mesh"]
+            fan = line["fanout"]
             print(f"[scale] aln_cards ({line['measures']}): fan-out "
                   f"{fan['reads_per_s']:.1f} reads/s (split "
                   f"{fan['split_s']:.1f} s, workers {fan['workers_s']:.1f} s,"
-                  f" merge {fan['merge_s']:.1f} s), mesh "
-                  f"{mesh['reads_per_s']:.1f} reads/s; "
-                  f"{fan['records']} BAM records equal aln.bam's in both",
-                  flush=True)
+                  f" merge {fan['merge_s']:.1f} s); {fan['records']} BAM "
+                  "records equal aln.bam's", flush=True)
         if stage == "sv":
             lo, hi = line["shard"]
             print(f"[scale] sv: {line['n_pass']} PASS of {line['regions']} "

@@ -10,10 +10,8 @@ bit-exact against their plain PyTorch versions on the card, and the card
 engine against the CPU engine and the NumPy host aligner: its device
 collect, its depth-3 stream with the adaptive state after every batch,
 and a whole batch without a stream sync; the per-batch CUDA graphs
-(align/programs.py) against the same programs enqueued op by op, on one
-device and per entry of a data mesh ([cuda:0, cuda:0], and four cards
-where the machine has them); the index tables derived on the card
-against those derived on the CPU.
+(align/programs.py) against the same programs enqueued op by op; the
+index tables derived on the card against those derived on the CPU.
 """
 
 import numpy as np
@@ -418,8 +416,7 @@ def test_sv_fanout_workers_share_the_card(cuda_device, tmp_path):
     from pansvr_tpu_torch.io.fasta import write_fasta
     from pansvr_tpu_torch.io.vcf import VCFWriter, minimal_header
     from pansvr_tpu_torch.parallel.fanout import (
-        regions_per_chromosome, run_sv_fanout)
-    from pansvr_tpu_torch.parallel.mesh import shard_chromosomes
+        regions_per_chromosome, run_sv_fanout, shard_chromosomes)
     from pansvr_tpu_torch.pipeline import PipelineConfig, run_pipeline
     from pansvr_tpu_torch.utils.simulate import make_dataset, write_sim_bam
 
@@ -453,100 +450,6 @@ def two_cards():
     if torch.cuda.device_count() < 2:
         pytest.skip("needs two CUDA devices")
     return torch.device("cuda", 0), torch.device("cuda", 1)
-
-
-@pytest.mark.cuda
-def test_mesh_engine_on_one_card_matches_single_device(cuda_device,
-                                                       small_world):
-    """AlignEngine(mesh=[cuda:0, cuda:0]) over a depth-3 stream: the
-    single-device engine's batches, K1 and K2 launched per mesh entry,
-    the index uploaded once."""
-    from pansvr_tpu_torch.align.host_align import OriResult
-    from pansvr_tpu_torch.align.engine import AlignEngine
-
-    idx, names, seqs = small_world
-    batches = [(seqs[i : i + 48], [OriResult(unmapped=True)] * 48)
-               for i in range(0, 240, 48)]
-    single = AlignEngine(idx, ori_chrom_names=names, device=cuda_device)
-    want = [_results(s) for s in single.align_stream(iter(batches))]
-    mesh = [torch.device("cuda", 0)] * 2
-    eng = AlignEngine(idx, ori_chrom_names=names, mesh=mesh)
-    assert list(eng._replicas) == [mesh[0]]
-    ec.reset_launches()
-    got = [_results(s) for s in eng.align_stream(iter(batches))]
-    assert got == want and sum(map(len, sum(got, []))) > 50
-    assert ec.LAUNCHES["extd2_fwd"] == ec.LAUNCHES["extd2_tb"] \
-        == 2 * eng.prof["n_dp_chunks"] > 0
-
-
-def _mesh_of(spec):
-    """[cuda:0, cuda:0] (two entries of one card), or one entry on each of
-    four cards."""
-    if spec == "one_card":
-        return [torch.device("cuda", 0)] * 2
-    if torch.cuda.device_count() < 4:
-        pytest.skip("needs four CUDA devices")
-    return [torch.device("cuda", i) for i in range(4)]
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("spec", ["one_card", "four_cards"])
-def test_mesh_graphs_match_op_by_op(cuda_device, small_world, spec):
-    """AlignEngine(mesh=...) with a CUDA graph per mesh entry (fuse_chain,
-    one GraphCache per distinct card) against the same mesh op by op
-    (fuse_chain=False) over a depth-3 stream: identical results, the
-    same K1/K2 launches by DP shape, no graph evicted; then a batch that
-    only replays graphs makes no synchronizing call (the sync debug mode
-    set to raise)."""
-    from pansvr_tpu_torch.align.host_align import OriResult
-    from pansvr_tpu_torch.align.engine import AlignEngine, EngineConfig
-
-    idx, names, seqs = small_world
-    oris = [OriResult(unmapped=True)] * 48
-    batches = [(seqs[i : i + 48], oris) for i in range(0, 240, 48)]
-    mesh = _mesh_of(spec)
-    out = {}
-    for fuse in (True, False):
-        eng = AlignEngine(idx, ori_chrom_names=names, mesh=mesh,
-                          config=EngineConfig(fuse_chain=fuse))
-        assert (eng._mesh_programs is not None) == fuse
-        ec.reset_launches()
-        got = [_results(s) for s in eng.align_stream(iter(batches))]
-        out[fuse] = (got, dict(ec.LAUNCHES_BY_SHAPE), eng)
-    (a, la, g), (b, lb, o) = out[True], out[False]
-    assert a == b and sum(map(len, sum(a, []))) > 50
-    assert la == lb and la
-    assert list(g._mesh_programs) == list(dict.fromkeys(mesh))
-    p = g.prof
-    assert p["n_graph_capture"] > 0 and not p["n_graph_evict"]
-    assert p["n_graph_replay"] == len(mesh) * (p["n_batches"]
-                                               + p["n_dp_chunks"])
-    assert not o.prof["n_graph_capture"] and not o.prof["n_graph_replay"]
-
-    for _ in range(2):      # K settles, every shape set captured
-        g.align_batch(*batches[1])
-    n_cap, n_rep, n_dp = (p[k] for k in (
-        "n_graph_capture", "n_graph_replay", "n_dp_chunks"))
-    torch.cuda.set_sync_debug_mode("error")
-    try:
-        got = g.align_batch(*batches[1])
-    finally:
-        torch.cuda.set_sync_debug_mode(0)
-    assert _results(got) == a[1]
-    assert p["n_graph_capture"] == n_cap
-    assert p["n_graph_replay"] - n_rep == \
-        len(mesh) * (1 + p["n_dp_chunks"] - n_dp)
-
-
-@pytest.mark.cuda
-def test_check_sharded_dp_on_card(cuda_device):
-    from pansvr_tpu_torch.ops.onchip_check import (
-        ALN, _fuzz_pairs, check_sharded_dp)
-
-    pairs = _fuzz_pairs(np.random.default_rng(3), 16)
-    mesh = [torch.device("cuda", 0)] * 2
-    assert check_sharded_dp(pairs, ALN, devices=mesh) == 16
-    assert check_sharded_dp(pairs, ALN, devices=mesh * 3) == 18
 
 
 @pytest.mark.cuda
@@ -619,8 +522,8 @@ def test_launches_run_with_their_device_current(cuda_device, monkeypatch):
 @pytest.mark.cuda
 def test_engine_and_kernels_on_second_card(two_cards, small_world):
     """K1/K2 and the engine on cuda:1 (a device other than the current
-    one): the plain versions' output, the engine's results on cuda:0,
-    and a mesh over both cards."""
+    one): the plain versions' output and the engine's results on
+    cuda:0."""
     from pansvr_tpu_torch.align.host_align import OriResult
     from pansvr_tpu_torch.align.engine import AlignEngine
 
@@ -637,8 +540,6 @@ def test_engine_and_kernels_on_second_card(two_cards, small_world):
                                 device=d0).align_batch(seqs, oris))
     assert _results(AlignEngine(idx, ori_chrom_names=names,
                                 device=d1).align_batch(seqs, oris)) == want
-    assert _results(AlignEngine(idx, ori_chrom_names=names,
-                                mesh=[d0, d1]).align_batch(seqs, oris)) == want
 
 
 @pytest.mark.cuda

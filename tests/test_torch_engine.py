@@ -83,10 +83,31 @@ def _cmp(sh, se, tag):
             assert getattr(a, f) == getattr(b, f), f"{tag} result {k} {f}"
 
 
-@pytest.mark.parametrize("reads", ["sim", "mutated", "len250"])
-def test_engine_matches_host_and_jax(world, reads):
-    ds, idx, host, eng = world
-    if reads == "sim":
+@pytest.fixture(scope="module")
+def parallel_world():
+    """tests/test_parallel.py's engine world, laid out as `world`."""
+    ds = make_dataset(seed=44, n_sv=4, n_pairs=80, types=("DEL", "INS"),
+                      chrom_lengths={"chr1": 120_000})
+    contigs = list(build_anchor_contigs(
+        ds.vcf_records, DictGenome(ds.genome), AnchorConfig()))
+    idx = build_index([(c.name, c.seq) for c in contigs], first_level_bases=11)
+    names = list(ds.genome)
+    return (ds, idx, HostAligner(idx, ori_chrom_names=names),
+            AlignEngine(idx, ori_chrom_names=names, device="cpu"))
+
+
+@pytest.mark.parametrize("reads", ["sim", "mutated", "len250", "parallel"])
+def test_engine_matches_host_and_jax(request, reads):
+    """One batch through the port's engine equals the host aligner's and
+    the JAX engine's alignments; "parallel" is tests/test_parallel.py's
+    engine world with its 48 pairs, which the JAX package also runs
+    sharded over a mesh."""
+    ds, idx, host, eng = request.getfixturevalue(
+        "parallel_world" if reads == "parallel" else "world")
+    if reads == "parallel":
+        rs = ds.reads[:48]
+        seqs = [r.seq1 for r in rs] + [r.seq2 for r in rs]
+    elif reads == "sim":
         rs = ds.reads[:60]
         seqs = [r.seq1 for r in rs] + [r.seq2 for r in rs]
     elif reads == "mutated":
@@ -265,6 +286,53 @@ def test_port_imports_no_jax():
                        capture_output=True, text=True)
     assert r.returncode == 0, r.stderr
     assert int(r.stdout.strip()) >= 10
+
+
+# the port's layers, lowest first: a module imports no package of the
+# layers above its own (function-level imports included)
+_UPPER = {("ops", "index", "io", "utils"): ("align", "parallel", "cli"),
+          ("align",): ("parallel", "cli")}
+
+
+def _port_imports(path: str, pkg: str) -> set:
+    """The port subpackages (align, cli, ...) a module file imports,
+    absolute and relative, at any depth of its code; `pkg` is the
+    module's own package (pansvr_tpu_torch.<sub>)."""
+    import ast
+
+    with open(path) as fh:
+        tree = ast.parse(fh.read(), path)
+    names = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            if node.level:
+                base = pkg.split(".")[: len(pkg.split(".")) - node.level + 1]
+                mod = ".".join(base + ([node.module] if node.module else []))
+                names += [mod] if node.module else \
+                    [f"{mod}.{a.name}" for a in node.names]
+            else:
+                names.append(node.module)
+    return {n.split(".")[1] for n in names
+            if n.startswith("pansvr_tpu_torch.")}
+
+
+def test_port_layers_import_no_upper_layer():
+    """No module under ops/, index/, io/ or utils/ imports align/,
+    parallel/ or cli/, and none under align/ imports parallel/ or cli/."""
+    root = os.path.join(REPO, "pansvr_tpu_torch")
+    seen = 0
+    for lower, upper in _UPPER.items():
+        for sub in lower:
+            for name in sorted(os.listdir(os.path.join(root, sub))):
+                if not name.endswith(".py"):
+                    continue
+                got = _port_imports(os.path.join(root, sub, name),
+                                    f"pansvr_tpu_torch.{sub}")
+                assert not got & set(upper), (f"{sub}/{name}", got)
+                seen += 1
+    assert seen >= 20
 
 
 def test_retier_widens_shapes_on_repeat_rich_reads():

@@ -179,3 +179,47 @@ def test_merge_expand_matches_jax(world, S):
         for f in e1._fields:
             assert np.array_equal(np.asarray(getattr(e1, f)),
                                   getattr(e2, f).numpy()), f"S={S} {f}"
+
+
+def test_front_at_scale_matches_jax():
+    """tests/test_parallel.py's production-size world (8,192 rows of
+    160) with a flat lane pool of 3 lanes a row: the engine's
+    uncompacted front (programs.front_stats) equals the JAX package's
+    seed_reads_flat + merge_expand_device3 in every field, and its stats
+    rows equal JAX's overflow flags, drop counts and seed counts; the
+    pool is small enough that some rows overflow and others do not."""
+    from pansvr_tpu_torch.align.programs import front_stats
+
+    rng = np.random.default_rng(81)
+    contigs = list(random_genome(
+        rng, {f"c{i}": 20_000 for i in range(4)}).items())
+    idx = build_index(contigs, first_level_bases=9)
+    B, L = 8192, 160
+    codes = np.zeros((B, L), np.uint8)
+    for b in range(B):
+        _, seq = contigs[b % len(contigs)]
+        p = int(rng.integers(0, len(seq) - L))
+        codes[b] = dna.encode(seq[p : p + L])
+    m = rng.random((B, L)) < 0.02
+    codes[m] = (codes[m] + 1) % 4
+    words, lens = js.pack_reads(codes), np.full(B, L, np.int32)
+    S0 = (L - 20) // SEED_STEP + 1
+    mask = np.ones((B, S0), bool)
+    S, M, n_ext, nf_mult = 32, 32, 9, 3
+
+    es, stats3 = front_stats(
+        to_device(idx, "cpu"), *(torch.from_numpy(a) for a in
+                                 (words, lens, mask)), S0, S, M, n_ext,
+        nf_mult)
+    jd = jax_to_device(idx)
+    sb = js.seed_reads_flat(jd, words, lens, mask, S0=S0, M=M,
+                            n_ext_steps=n_ext, nf_mult=nf_mult)
+    j_es = js.merge_expand_device3(sb, jd, S=S)
+    for f in j_es._fields:
+        assert np.array_equal(getattr(es, f).numpy(),
+                              np.asarray(getattr(j_es, f))), f
+    want = np.stack([np.asarray(sb.n_overflow), np.asarray(j_es.n_dropped),
+                     np.asarray(j_es.valid).sum(1)]).astype(np.int32)
+    assert np.array_equal(stats3.numpy(), want)
+    assert (want[0] > 0).any(), "the world must reach the lane pool"
+    assert (want[0] == 0).any() and want[2].sum() > 0

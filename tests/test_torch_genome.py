@@ -328,8 +328,8 @@ def test_scale_run_genome_on_cpu(scaled):
 
 def test_scale_run_genome_aln_ops_and_cards(scaled):
     """The genome world's aln_ops and aln_cards on the CPU: the op-by-op
-    pass, the fan-out over two workers and the mesh of two CPU entries
-    give aln.bam's records (test_torch_scale.check_aln_ops_and_cards)."""
+    pass and the fan-out over two workers give aln.bam's records
+    (test_torch_scale.check_aln_ops_and_cards)."""
     from test_torch_scale import check_aln_ops_and_cards
 
     out, rc, rep = scaled

@@ -1,37 +1,15 @@
-"""The port's data-parallel slice against the JAX package's mesh code:
-sharded_realign_front and the engine's sharded front over a mesh of 8
-CPU entries against the JAX programs on the conftest's 8 virtual CPU
-devices, check_sharded_dp against the JAX _sharded_dp, and the device
-guard of the kernel launches (the mesh engine: test_torch_mesh_engine.py)."""
+"""The port's multi-process helpers and launch guard: the fc_sv fan-out's
+chromosome shards and VCF merge (parallel/fanout.py), and the device
+guard of the kernel launches. The fc_aln fan-out runs in
+test_torch_aln_shard.py."""
 
 import contextlib
 import os
 
-import numpy as np
-import pytest
 import torch
 
-from pansvr_tpu.align import engine as jax_engine
-from pansvr_tpu.align.host_align import SEED_STEP
-from pansvr_tpu.index.builder import build_index as jax_build_index
-from pansvr_tpu.index.device import to_device as jax_to_device
-from pansvr_tpu.ops.seeding import merge_expand_device3 as jax_merge
-from pansvr_tpu.ops.seeding import pack_reads
-from pansvr_tpu.ops.seeding import seed_reads_flat as jax_seed_reads_flat
-from pansvr_tpu.parallel.mesh import make_data_mesh as jax_make_data_mesh
-from pansvr_tpu.parallel.mesh import (
-    sharded_realign_front as jax_sharded_realign_front)
-from pansvr_tpu.utils import dna
-from pansvr_tpu.utils.simulate import random_genome
-from pansvr_tpu_torch.index.builder import build_index
-from pansvr_tpu_torch.index.device import to_device
-from pansvr_tpu_torch.ops.seeding import DeviceSeeds
-from pansvr_tpu_torch.parallel.mesh import (
-    front_stats,
-    make_data_mesh,
-    row_shards,
-    sharded_realign_front,
-)
+from pansvr_tpu.parallel.mesh import merge_vcf_parts as jax_merge_vcf_parts
+from pansvr_tpu_torch.parallel.fanout import merge_vcf_parts, shard_chromosomes
 
 # torch's intra-op threads slow the plain path's many small ops several
 # fold, most of all beside other test processes: one thread, here and in
@@ -39,142 +17,61 @@ from pansvr_tpu_torch.parallel.mesh import (
 torch.set_num_threads(1)
 os.environ.setdefault("OMP_NUM_THREADS", "1")
 
-FIELDS = DeviceSeeds._fields
+
+def test_shard_chromosomes_covers_each_chromosome_once():
+    """Contiguous, disjoint ranges in chromosome order that together hold
+    every chromosome with regions once, each shard's regions within one
+    chromosome's of an even share; shards left without regions are left
+    out."""
+    counts = [5, 0, 30, 10, 10, 0, 25, 20, 0]
+    total = sum(counts)
+    assert shard_chromosomes(counts, 1) == [range(0, 9)]
+    assert shard_chromosomes([4, 4], 2) == [range(0, 1), range(1, 2)]
+    # the trailing empty chromosome lands in a shard with no regions
+    assert shard_chromosomes([10, 0], 2) == [range(0, 1)]
+    for n in range(1, 8):
+        shards = shard_chromosomes(counts, n)
+        assert 1 <= len(shards) <= n
+        assert shards[0].start == 0
+        for a, b in zip(shards, shards[1:]):
+            assert a.stop == b.start
+        held = [i for r in shards for i in r]
+        assert len(held) == len(set(held))
+        assert {i for i, c in enumerate(counts) if c} <= set(held)
+        for r in shards:
+            got = sum(counts[i] for i in r)
+            assert 0 < got <= total / n + max(counts), (n, r, got)
 
 
-def _reads(rng, contigs, B, L, err=0.0):
-    codes = np.zeros((B, L), np.uint8)
-    for b in range(B):
-        _, seq = contigs[b % len(contigs)]
-        p = int(rng.integers(0, len(seq) - L))
-        codes[b] = dna.encode(seq[p : p + L])
-    if err:
-        m = rng.random((B, L)) < err
-        codes[m] = (codes[m] + 1) % 4
-    return pack_reads(codes), np.full(B, L, np.int32)
+def _vcf_part(path, regions):
+    """An fc_sv VCF part: its header, then a record a region (the ID's
+    first '_' field is the region)."""
+    with open(path, "w") as fh:
+        fh.write("##fileformat=VCFv4.2\n##contig=<ID=chr1,length=9000>\n"
+                 "#CHROM\tPOS\tID\tREF\tALT\tQUAL\tFILTER\tINFO\n")
+        for r in regions:
+            fh.write(f"chr1\t{100 * r + 1}\t{r}_DEL_{r}\tN\t<DEL>\t.\t"
+                     f"PASS\tSVTYPE=DEL;SVLEN=-{50 + r}\n")
 
 
-def test_make_data_mesh_and_row_shards():
-    assert make_data_mesh(3, "cpu") == [torch.device("cpu")] * 3
-    mesh = make_data_mesh(8, "cpu")
-    # P("data"): contiguous equal slices in mesh order
-    assert [(lo, hi) for _, lo, hi in row_shards(128, mesh)] == \
-        [(16 * s, 16 * s + 16) for s in range(8)]
-    assert [(lo, hi) for _, lo, hi in row_shards(10, mesh[:4])] == \
-        [(0, 3), (3, 6), (6, 9), (9, 10)]
-
-
-def test_sharded_front_matches_jax_and_single_device():
-    """tests/test_parallel.py's world: the port's sharded front over 8
-    CPU entries equals the JAX sharded front on 8 virtual devices and
-    the port's single-device front, field for field, with the same
-    seed total."""
-    rng = np.random.default_rng(80)
-    contigs = list(random_genome(rng, {f"c{i}": 2000 for i in range(3)}).items())
-    jidx = jax_build_index(contigs, first_level_bases=9)
-    idx = build_index(contigs, first_level_bases=9)
-    B, L = 32, 96
-    words, lens = _reads(rng, contigs, B, L)
-    S0 = (L - 20) // SEED_STEP + 1
-    mask = np.ones((B, S0), bool)
-
-    j_es, _, j_total = jax_sharded_realign_front(
-        jax_make_data_mesh(8), jax_to_device(jidx), S0=S0, S=64)(
-            words, lens, mask)
-    es, stats3, total = sharded_realign_front(
-        make_data_mesh(8, "cpu"), idx, S0=S0, S=64)(words, lens, mask)
-    one, one_stats = front_stats(
-        to_device(idx, "cpu"), *(torch.from_numpy(a) for a in
-                                 (words, lens, mask)), S0, 64, 128, 10, 128)
-    assert int(stats3[0].max()) == 0          # no overflow row here
-    for f in FIELDS:
-        got = getattr(es, f).numpy()
-        np.testing.assert_array_equal(got, np.asarray(getattr(j_es, f)),
-                                      err_msg=f)
-        np.testing.assert_array_equal(got, getattr(one, f).numpy(),
-                                      err_msg=f)
-    assert torch.equal(stats3, one_stats)
-    assert total == int(j_total) == int(es.valid.sum()) > 0
-
-
-def test_sharded_front_at_scale_matches_jax():
-    """tests/test_parallel.py's production-size world (8,192 rows of
-    160), with a lane pool of 3 lanes a row: the port's sharded front
-    over 8 CPU entries equals the JAX engine's _sharded_front on the
-    8-device mesh in every field and in its overflow flags (each entry's
-    flat lane pool covers its own 1,024 rows, as each shard_map
-    program's does), while the single-device front flags other rows and
-    agrees on the rows neither flags."""
-    rng = np.random.default_rng(81)
-    contigs = list(random_genome(rng, {f"c{i}": 20_000 for i in range(4)}).items())
-    jidx = jax_build_index(contigs, first_level_bases=9)
-    idx = build_index(contigs, first_level_bases=9)
-    B, L = 8192, 160
-    words, lens = _reads(rng, contigs, B, L, err=0.02)
-    S0 = (L - 20) // SEED_STEP + 1
-    mask = np.ones((B, S0), bool)
-    S, M = 32, 32
-
-    fr = jax_engine._sharded_front(jax_make_data_mesh(8), S0, S, M, "v5",
-                                   9, 3)
-    j_es, j_stats = fr(jax_to_device(jidx), words, lens, mask)
-    es, stats3, total = sharded_realign_front(
-        make_data_mesh(8, "cpu"), idx, S0, S, M=M, n_ext=9, nf_mult=3)(
-            words, lens, mask)
-    np.testing.assert_array_equal(stats3.numpy(), np.asarray(j_stats))
-    for f in FIELDS:
-        np.testing.assert_array_equal(getattr(es, f).numpy(),
-                                      np.asarray(getattr(j_es, f)),
-                                      err_msg=f)
-    assert total == int(np.asarray(j_stats)[2].sum())
-    sb1 = jax_seed_reads_flat(jax_to_device(jidx), words, lens, mask,
-                              S0=S0, M=M, n_ext_steps=9, nf_mult=3)
-    flagged = stats3[0].numpy() > 0
-    assert flagged.any(), "the world must reach the per-entry lane pools"
-    assert (flagged != (np.asarray(sb1.n_overflow) > 0)).any()
-    clean = ~(flagged | (np.asarray(sb1.n_overflow) > 0))
-    es1 = jax_merge(sb1, jax_to_device(jidx), S=S)
-    for f in FIELDS:
-        np.testing.assert_array_equal(getattr(es, f).numpy()[clean],
-                                      np.asarray(getattr(es1, f))[clean],
-                                      err_msg=f)
-
-
-def _short_pairs(rng, n, Q, T):
-    pairs = []
-    for _ in range(n):
-        t = rng.integers(0, 4, int(rng.integers(8, T + 1))).astype(np.uint8)
-        q = t[: min(len(t), Q)].copy()
-        m = rng.random(len(q)) < 0.1
-        q[m] = (q[m] + 1) % 4
-        pairs.append((q[: int(rng.integers(4, len(q) + 1))], t))
-    return pairs
-
-
-def test_check_sharded_dp_matches_jax():
-    """check_sharded_dp over 8 CPU entries (plain kernel versions) checks
-    its padded batch; on the JAX gate's padded batch (8 x BLK problems)
-    the port's sharded DP rows equal the JAX _sharded_dp(pallas=True,
-    interpret=True) rows bit for bit."""
-    from pansvr_tpu.ops.extd2_jax import Extd2Params as JaxParams
-    from pansvr_tpu.ops.extd2_pallas import BLK
-    from pansvr_tpu.ops.onchip_check import _pad_batch as jax_pad_batch
-    from pansvr_tpu_torch.align.engine import dp_chunk_sharded
-    from pansvr_tpu_torch.ops.onchip_check import ALN, check_sharded_dp
-
-    Q, T, W = 48, 64, 64
-    pairs = _short_pairs(np.random.default_rng(3), 12, Q, T)
-    assert check_sharded_dp(pairs, ALN, Q, T, W, devices=["cpu"] * 8) == 16
-    assert check_sharded_dp(pairs, ALN, Q, T, W, devices=["cpu"] * 5) == 15
-    base = jax_pad_batch(pairs, Q, T)
-    batch = tuple(np.resize(a, (8 * BLK,) + a.shape[1:]).copy()
-                  for a in base)
-    ops, packed = dp_chunk_sharded(make_data_mesh(8, "cpu"), *batch, ALN, W)
-    fn = jax_engine._sharded_dp(jax_make_data_mesh(8), JaxParams(), True, W,
-                                Q + T, True)
-    j_ops, j_packed = (np.asarray(x) for x in fn(*batch))
-    np.testing.assert_array_equal(packed.numpy(), j_packed)
-    np.testing.assert_array_equal(ops.numpy(), j_ops)
+def test_merge_vcf_parts_matches_jax(tmp_path):
+    """The parts of contiguous region shards merge to the JAX package's
+    bytes (one header, the records in part order); parts handed out of
+    order still merge in region order."""
+    parts = [str(tmp_path / f"p{k}.vcf") for k in range(3)]
+    for path, regions in zip(parts, ([0, 3, 4], [7, 11], [12, 30, 31])):
+        _vcf_part(path, regions)
+    ours, theirs = str(tmp_path / "ours.vcf"), str(tmp_path / "jax.vcf")
+    merge_vcf_parts(parts, ours)
+    jax_merge_vcf_parts(parts, theirs)
+    with open(ours, "rb") as a, open(theirs, "rb") as b:
+        merged = a.read()
+        assert merged == b.read()
+    assert merged.count(b"#CHROM") == 1 and merged.count(b"_DEL_") == 8
+    shuffled = str(tmp_path / "shuffled.vcf")
+    merge_vcf_parts(parts[::-1], shuffled)
+    with open(shuffled, "rb") as fh:
+        assert fh.read() == merged
 
 
 def test_kernel_launches_run_under_their_tensors_device(monkeypatch):

@@ -154,6 +154,38 @@ def test_onchip_sv_profile_at_the_check_window():
     assert check_extd2(pairs, SV, device="cpu") == len(pairs)
 
 
+def test_check_extd2_counts_cases_and_raises_on_a_wrong_result(
+        monkeypatch):
+    """check_extd2 on the plain versions returns the cases it checked for
+    the realigner's and the contig profile, and raises on the first case
+    whose forward score or traceback differs from the oracle."""
+    from pansvr_tpu_torch.ops import extd2_cuda as ec
+    from pansvr_tpu_torch.ops.onchip_check import (
+        ALN, SV, _fuzz_pairs, check_extd2)
+
+    pairs = _fuzz_pairs(np.random.default_rng(12), 6)
+    for params in (ALN, SV):
+        assert check_extd2(pairs, params, device="cpu") == len(pairs)
+    fwd, tb = ec.extd2_fwd, ec.extd2_traceback
+
+    def fwd_off_by_one(*args):
+        out = fwd(*args)
+        return out._replace(max=out.max + (torch.arange(len(out.max)) == 3))
+
+    monkeypatch.setattr(ec, "extd2_fwd", fwd_off_by_one)
+    with pytest.raises(AssertionError, match="case 3 max"):
+        check_extd2(pairs, ALN, device="cpu")
+
+    def tb_without_ops(*args):
+        ops, i_f, j_f = tb(*args)
+        return torch.full_like(ops, 3), i_f, j_f
+
+    monkeypatch.setattr(ec, "extd2_fwd", fwd)
+    monkeypatch.setattr(ec, "extd2_traceback", tb_without_ops)
+    with pytest.raises(AssertionError, match="case 0 cigar"):
+        check_extd2(pairs, ALN, device="cpu")
+
+
 def _files(path):
     if os.path.isfile(path):
         return {"": _body(path)}

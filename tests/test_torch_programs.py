@@ -10,7 +10,10 @@ against the JAX engine's fused programs, on the CPU:
       each program eagerly into the same output tensors on every call, as
       a CUDA graph's replay writes them) at stream depth 1 and 3, over a
       stream that re-chains, engages the compaction budget and widens
-      with batch retries: the BAM records equal the JAX engine's. A
+      with batch retries: the BAM records equal the JAX engine's; and
+      over tests/test_parallel.py's engine world, whose first batch
+      re-chains after the next two batches replayed its front program:
+      the alignments equal the op-by-op engine's and the JAX engine's. A
       tensor the engine read after a later replay of its graph would
       change them;
   (d) the cache: one capture per shape set, its bound, its counters and
@@ -252,9 +255,72 @@ def churn_world():
     return idx, names, lens, batches, want
 
 
-@pytest.mark.parametrize("depth", [1, 3])
-def test_engine_through_replay_emulator_matches_jax(churn_world, depth):
-    idx, names, lens, batches, want = churn_world
+# one read class for every batch (the many-MEM reads are 250 long), so the
+# batches share their front programs; 128-problem DP chunks keep the plain
+# kernels' padded work small
+GRAPH_CFG = dict(dp_chunk=128, read_classes=(256, 1600))
+
+
+def _results(states):
+    return [[(r.align_score, r.chain_score, r.direction, r.ref_bg, r.sv_id,
+              r.mapq, r.cigar) for r in s.results] for s in states]
+
+
+@pytest.fixture(scope="module")
+def graph_world():
+    """tests/test_parallel.py's engine world, its 160 reads in five
+    batches of 32, four many-MEM reads first: the first batch's
+    speculative chain width misses, and at depth 3 the next two batches
+    replay its front program before its re-chain. Returns (index, names,
+    batches, the JAX engine's alignments)."""
+    ds = make_dataset(seed=44, n_sv=4, n_pairs=80, types=("DEL", "INS"),
+                      chrom_lengths={"chr1": 120_000})
+    contigs = list(build_anchor_contigs(
+        ds.vcf_records, DictGenome(ds.genome), AnchorConfig()))
+    idx = build_index([(c.name, c.seq) for c in contigs],
+                      first_level_bases=11)
+    seqs = [r.seq1 for r in ds.reads] + [r.seq2 for r in ds.reads]
+    seqs = _many_mem_reads(contigs, np.random.default_rng(5), 4) + seqs[:156]
+    batches = [(seqs[i : i + 32], [OriResult(unmapped=True)] * 32)
+               for i in range(0, 160, 32)]
+    names = list(ds.genome)
+    jeng = JaxEngine(idx, ori_chrom_names=names, config=JaxConfig(**GRAPH_CFG))
+    want = [_results(s) for s in jeng.align_stream(iter(batches))]
+    return idx, names, batches, want
+
+
+def _graph_world_through_emulator(graph_world, depth):
+    idx, names, batches, want = graph_world
+    cfg = dict(GRAPH_CFG, stream_depth=depth)
+    got, engs = {}, {}
+    for graphs in (True, False):
+        eng = engs[graphs] = AlignEngine(idx, ori_chrom_names=names,
+                                         device="cpu",
+                                         config=EngineConfig(**cfg))
+        if graphs:
+            eng._programs = ReplayEmulator(eng.device, eng.prof)
+        got[graphs] = [_results(s) for s in eng.align_stream(iter(batches))]
+        assert eng.prof["n_rechain"] > 0
+    assert got[True] == got[False] == want
+    assert sum(bool(r) for b in want for r in b) >= 40
+    g, o = engs[True].prof, engs[False].prof
+    for k in ("n_batches", "n_dp_chunks", "n_rechain", "n_fallback"):
+        assert g[k] == o[k], k
+    assert g["n_graph_capture"] == len(engs[True]._programs)
+    assert g["n_graph_replay"] == g["n_batches"] + g["n_dp_chunks"]
+    assert not g["n_graph_evict"] and not o["n_graph_capture"]
+
+
+@pytest.mark.parametrize("name,depth", [
+    pytest.param("churn", 1, id="1"), pytest.param("churn", 3, id="3"),
+    pytest.param("graph", 1, id="graph-1"),
+    pytest.param("graph", 3, id="graph-3")])
+def test_engine_through_replay_emulator_matches_jax(request, name, depth):
+    if name == "graph":
+        _graph_world_through_emulator(request.getfixturevalue("graph_world"),
+                                      depth)
+        return
+    idx, names, lens, batches, want = request.getfixturevalue("churn_world")
     # one read class for every batch (the many-MEM reads are 250 long),
     # so the first batches share their front program
     eng = AlignEngine(idx, ori_chrom_names=names, device="cpu",

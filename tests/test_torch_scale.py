@@ -233,7 +233,7 @@ def check_aln_ops_and_cards(rep, out):
     """aln_ops and aln_cards of a scale_run report on the CPU: the op-by-op
     pass keys the shape sets of aln's (both op by op on the CPU, from the
     default budgets), compare (f) held its records to aln.bam's, and the
-    fan-out's and the mesh's records equal aln.bam's."""
+    fan-out's records equal aln.bam's."""
     aln, ops = rep["stages"]["aln"], rep["stages"]["aln_ops"]
     assert aln["config"] == scale_run.CONFIGS[0][0] and aln["fuse_chain"]
     assert ops["config"] == scale_run.OPS_CONFIG[0] and not ops["fuse_chain"]
@@ -254,16 +254,12 @@ def check_aln_ops_and_cards(rep, out):
     assert rep["compare"]["f_records"] == len(n)
     cards = rep["stages"]["aln_cards"]
     assert cards["rc"] == 0 and cards["cards"] == 2
-    assert not cards["share_card"] and cards["measures"] == "2 cpu entries"
+    assert not cards["share_card"] and cards["measures"] == "2 cpu workers"
     assert cards["reads"] == aln["reads"]
-    fan, mesh = cards["fanout"], cards["mesh"]
+    fan = cards["fanout"]
     assert fan["workers"] == 2 and fan["records"] == len(n)
     assert min(fan[k] for k in ("split_s", "workers_s", "merge_s")) > 0
-    assert mesh["entries"] == ["cpu", "cpu"] and mesh["records"] == len(n)
-    assert mesh["prof"]["n_reads"] == aln["reads"]
-    assert mesh["graphs"]["n_front_shape_sets"] >= 2   # one key an entry
-    for f in ("aln_fanout.bam", "aln_mesh.bam"):
-        assert world.bam_records(str(out / f)) == n
+    assert world.bam_records(str(out / "aln_fanout.bam")) == n
 
 
 def test_scale_run_aln_ops_and_cards_on_cpu(scaled):
@@ -274,32 +270,25 @@ def test_scale_run_aln_ops_and_cards_on_cpu(scaled):
 
 def test_aln_cards_mesh_and_pins(monkeypatch):
     """--cards N on cards: N distinct cards, the fan-out's workers pinned
-    by CUDA_VISIBLE_DEVICES={shard}; with fewer visible it raises (where
-    make_data_mesh would return the cards there are); --share-card puts
-    every entry and worker on the first card."""
+    by CUDA_VISIBLE_DEVICES={shard}; with fewer visible it raises;
+    --share-card puts every worker on the first card."""
     from argparse import Namespace
 
-    from pansvr_tpu_torch.parallel.mesh import make_data_mesh
-
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
-    cuda = [torch.device("cuda", i) for i in range(4)]
     for have in (1, 4):
         monkeypatch.setattr(torch.cuda, "device_count", lambda: have)
         a = Namespace(cards=2, device="cuda", share_card=False)
         if have == 1:
-            assert make_data_mesh(2) == cuda[:1]     # quietly short
             with pytest.raises(RuntimeError, match="2 cards.*1 visible"):
-                scale_run.card_mesh(a)
+                scale_run.card_env(a)
         else:
-            assert scale_run.card_mesh(a) == (
-                cuda[:2], {"CUDA_VISIBLE_DEVICES": "{shard}"}, "2 cards")
+            assert scale_run.card_env(a) == (
+                {"CUDA_VISIBLE_DEVICES": "{shard}"}, "2 cards")
         a.share_card = True
-        mesh, env, what = scale_run.card_mesh(a)
-        assert mesh == [cuda[0]] * 2 and env is None
-        assert what.startswith("host overlap")
+        env, what = scale_run.card_env(a)
+        assert env is None and what.startswith("host overlap")
     a = Namespace(cards=3, device="cpu", share_card=False)
-    assert scale_run.card_mesh(a) == ([torch.device("cpu")] * 3, None,
-                                      "3 cpu entries")
+    assert scale_run.card_env(a) == (None, "3 cpu workers")
 
 
 def test_fc_aln_of_scale_run_matches_jax(scaled):
