@@ -53,6 +53,16 @@ Phases, each timed; any failure raises (exit code != 0, no result line):
              all three configurations give identical BAM records; first
              1,024 reads: the card engine's alignments equal the NumPy host
              aligner's, field by field
+ 7b front    the front's kernels (csrc/front.cu through ops/front_cuda.py)
+             at the widest batch and the largest 48x64 DP chunk of the
+             default configuration's pass of phase 7, kept as they ran
+             (align/kernel_table.py): front_program, the host-collect
+             pack, a re-chain at full width and the DP chunk bit-exact vs
+             the plain programs on the card; each entry point's wrapper
+             time, its kernels alone, its bytes bound and the plain
+             program's time (pansvr_front, pansvr_chain, pansvr_collect,
+             and pansvr_dp_glue: fill, walk start and packing, timed with
+             K1 and K2 inside)
   8 overflow every read on target (world.build_overflow_world, 32,768
              reads): the first batch overflows the default lane pool, the
              engine widens and re-dispatches; final host fallback <= 5%
@@ -105,7 +115,8 @@ Phases, each timed; any failure raises (exit code != 0, no result line):
              graph counters; the same pass op by op as in phase 14, then
              phase 6's profiled passes on its reads);
              (a) the first 8,192 reads give identical BAM records on the
-             CPU and the card in all three configurations; (e) the same
+             CPU and the card in all three configurations, and phase 7b
+             at the default configuration's batch there; (e) the same
              reads on the card over an
              index of the same anchors at the auto first level give them
              too; sort + BAI; fc_sv through the region fan-out with two
@@ -114,7 +125,9 @@ Phases, each timed; any failure raises (exit code != 0, no result line):
  16 checks   both kernels launched in every counted path above (fc_aln
              paths, fc_sv, run, the chromosome and genome worlds' fc_aln
              and fc_sv; counters reset just before each
-             path and read just after); host fallback <= 5% of the reads
+             path and read just after), and the front's entry points in
+             every path that runs fc_aln (pansvr_collect but in the host
+             collect's) and in none of fc_sv's; host fallback <= 5% of the reads
              with a k-mer hit on the bench world; no module of JAX or of
              the JAX package (pansvr_tpu) imported
 Prints a {"kernels": [...]} line (per kernel at the main shape: "ms" the
@@ -124,8 +137,10 @@ its DP class and problem count, times the kernel alone there;
 "fc_sv_launches" those of phase 11's pass, "fc_sv_kernel_ms" the kernel
 alone on its first chunk, "chrom_launches" and
 "chrom_fc_sv_launches" those of phase 14's fc_aln and fc_sv,
-"genome_launches" and "genome_fc_sv_launches" those of phase 15's),
-then the last line
+"genome_launches" and "genome_fc_sv_launches" those of phase 15's;
+for the front's entry points "ms", "kernel_ms", "bound_ms", "plain_ms"
+at the bench world's batch (phase 7b) and "genome_*" at the genome
+world's, and their launches in the same paths), then the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
@@ -538,6 +553,11 @@ def drop_tuning(w):
 
 # launches by (kernel, Tmax, W) of every counted path, as counted() adds
 LAUNCH_SHAPES: dict = {}
+# phase 7b's rows by world (align/kernel_table.time_batch)
+FRONT_ROWS: dict = {}
+# the front's entry points (ops/front_cuda.py) as extd2_cuda counts them
+FRONT_ENTRIES = ("pansvr_front", "pansvr_chain", "pansvr_collect",
+                 "pansvr_dp_fill", "pansvr_dp_start", "pansvr_dp_pack")
 
 
 def split_line(p) -> str:
@@ -553,19 +573,48 @@ def split_line(p) -> str:
 
 def counted(launches, name, fn):
     """Run fn with the kernel launch counters set to 0 just before and
-    read just after; the counts add up under launches[name] (and by DP
-    shape under LAUNCH_SHAPES[name])."""
+    read just after; the counts (K1, K2 and the front's entry points) add
+    up under launches[name] (and by DP shape under LAUNCH_SHAPES[name])."""
     from pansvr_tpu_torch.ops import extd2_cuda as ec
 
     ec.reset_launches()
     out = fn()
-    acc = launches.setdefault(name, dict.fromkeys(ec.LAUNCHES, 0))
-    for k, v in ec.LAUNCHES.items():
+    acc = launches.setdefault(
+        name, dict.fromkeys((*ec.LAUNCHES, *FRONT_ENTRIES), 0))
+    for k, v in {**ec.LAUNCHES, **ec.FRONT_LAUNCHES}.items():
         acc[k] += v
     by = LAUNCH_SHAPES.setdefault(name, {})
     for k, v in ec.LAUNCHES_BY_SHAPE.items():
         by[k] = by.get(k, 0) + v
     return out
+
+
+def front_kernel_phase(kept, what):
+    """Phase 7b: the front's kernels on the card at the batch and DP
+    chunk `kept` (align/kernel_table.keep_batch) from `what`'s fc_aln
+    pass: every output bit-exact vs the plain programs, then one row an
+    entry point (FRONT_ROWS[what])."""
+    from pansvr_tpu_torch.align.kernel_table import check_batch, time_batch
+
+    if "shapes" not in kept or "dp" not in kept:
+        raise AssertionError(f"{what}: no front or DP chunk was kept")
+    compared = check_batch(kept)
+    if "dp_program" not in compared:
+        raise AssertionError(f"{what}: the DP chunk was not compared")
+    rows = FRONT_ROWS[what] = time_batch(kept)
+    sh = rows[0]["shapes"]
+    log(f"{what} front kernels (phase 7b) at its widest batch {sh} "
+        f"({rows[0]['lanes']} MEM lanes, index of {rows[0]['n_kmer']} "
+        f"k-mers) and DP chunk {rows[-1].get('dp_shape')}: outputs "
+        f"bit-exact vs the plain programs {compared}; " + "; ".join(
+            f"{r['name']} {r['ms']:.4f} ms (kernels alone "
+            f"{r['kernel_ms']:.4f}, bound {r['bound_ms']:.6f}, plain "
+            f"{r['plain_ms']:.4f}"
+            + (f", K1 + K2 {r['k1_k2_ms']:.4f}" if "k1_k2_ms" in r else "")
+            + ")" for r in rows))
+    log(f"{what} front kernels alone (ms a call): "
+        + "; ".join(f"{r['name']} {r['kernels']}" for r in rows))
+    return rows
 
 
 def same_bam(a_path, b_path, what):
@@ -1222,6 +1271,7 @@ def genome_phase(tmp, dev, launches):
     import torch
 
     from pansvr_tpu_torch import world
+    from pansvr_tpu_torch.align.kernel_table import keep_batch
     from pansvr_tpu_torch.cli.main import parse_args, run_fc_sv
     from pansvr_tpu_torch.index.builder import build_index
     from pansvr_tpu_torch.index.store import save_index
@@ -1298,14 +1348,21 @@ def genome_phase(tmp, dev, launches):
     head = os.path.join(d, "head.fq")
     n_head = world.head_signal(w["signal"], head, N_GENOME_PARITY)
     bams = []
+    genome_kept = None
     for device, name, cfg in [("cpu", "default", {})] + [
             (dev.type, name, cfg) for name, cfg in CONFIGS]:
         drop_tuning(w)
         bams.append(os.path.join(d, f"head_{device}_{name}.bam"))
-        fc_aln(w, head, bams[-1], device, **cfg)
+        with keep_batch() as kept:
+            fc_aln(w, head, bams[-1], device, **cfg)
+        if device == "cuda":
+            genome_kept = genome_kept or kept
     for b in bams[1:]:
         out["a_records"] = same_bam(bams[0], b, f"genome world (a), first "
                                     f"{n_head} reads, cpu vs {b}")
+    if cuda:
+        front_kernel_phase(genome_kept, "genome")
+        genome_kept = None
     auto = dict(w, index=os.path.join(d, "rdbg_auto"))
     aidx = build_index(list(read_fasta(w["anchors"]).items()),
                        first_level_bases="auto")
@@ -1353,6 +1410,35 @@ def genome_phase(tmp, dev, launches):
     return out
 
 
+def front_kernel_rows(launches) -> list[dict]:
+    """The kernels line's rows of the front's entry points: phase 7b's
+    times at the bench world's batch and, as genome_*, the genome
+    world's; their launches in a default fc_aln pass and in the
+    chromosome and genome worlds' passes (pansvr_dp_glue: those of
+    pansvr_dp_fill, one a DP chunk as are the walk start and packing)."""
+    genome = {r["name"]: r for r in FRONT_ROWS.get("genome", [])}
+    out = []
+    for r in FRONT_ROWS["bench"]:
+        name = r["name"]
+        key = "pansvr_dp_fill" if name == "pansvr_dp_glue" else name
+        g = genome.get(name, {})
+        out.append(dict(
+            name=name, route="cuda", source="pansvr_tpu_torch/csrc/front.cu",
+            replaces=None, launches=launches[f"bench_{CONFIGS[0][0]}"][key],
+            max_abs_err=0, ms=r["ms"], kernel_ms=r["kernel_ms"],
+            plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+            bound_by="bytes", library_ms=None,
+            chrom_launches=launches["chrom"][key],
+            genome_launches=launches["genome"][key],
+            genome_ms=g.get("ms"), genome_kernel_ms=g.get("kernel_ms"),
+            genome_plain_ms=g.get("plain_ms"),
+            genome_bound_ms=g.get("bound_ms"),
+            **({"k1_k2_ms": r["k1_k2_ms"],
+                "genome_k1_k2_ms": g.get("k1_k2_ms")}
+               if "k1_k2_ms" in r else {})))
+    return out
+
+
 def main():
     t_start = time.perf_counter()
     secs = {}
@@ -1371,6 +1457,7 @@ def main():
 
     from pansvr_tpu_torch import _build, world
     from pansvr_tpu_torch.align.engine import AlignEngine
+    from pansvr_tpu_torch.align.kernel_table import keep_batch
     t = time.perf_counter()
     _build.load_kernels()
     secs["build"] = time.perf_counter() - t
@@ -1414,9 +1501,12 @@ def main():
         world.head_signal(w["signal"], fq16, N_BAM_PARITY)
         cpu_bam = os.path.join(tmp, "head_cpu.bam")
         fc_aln(w, fq16, cpu_bam, "cpu")
+        bench_kept = None
         for name, cfg in CONFIGS:
             gpu_bam = os.path.join(tmp, f"head_{name}.bam")
-            fc_aln(w, fq16, gpu_bam, "cuda", **cfg)
+            with keep_batch() as kept:
+                fc_aln(w, fq16, gpu_bam, "cuda", **cfg)
+            bench_kept = bench_kept or kept
             n_rec = same_bam(cpu_bam, gpu_bam, f"first {N_BAM_PARITY} reads, "
                              f"--device cpu vs cuda {name}")
         secs["parity_bam"] = time.perf_counter() - t
@@ -1424,6 +1514,11 @@ def main():
             f"between the plain CPU path and the card in "
             f"{', '.join(n for n, _ in CONFIGS)} "
             f"({secs['parity_bam']:.1f} s)")
+
+        t = time.perf_counter()
+        front_kernel_phase(bench_kept, "bench")
+        bench_kept = None
+        secs["front_kernels"] = time.perf_counter() - t
 
         t = time.perf_counter()
         seqs, oris = world.read_batch(w["signal"], N_HOST_PARITY)
@@ -1473,8 +1568,17 @@ def main():
         for k in ("extd2_fwd", "extd2_tb"):
             if counts[k] <= 0:
                 raise AssertionError(f"{k} was not launched on path {path}")
+    host_collect = f"bench_{CONFIGS[1][0]}"
+    for path, counts in launches.items():
+        fc_sv_only = path == "fc_sv" or path.endswith("_fc_sv")
+        for k in FRONT_ENTRIES:
+            if fc_sv_only and counts[k]:
+                raise AssertionError(f"{k} was launched on path {path}")
+            if not fc_sv_only and counts[k] <= 0 and not (
+                    k == "pansvr_collect" and path == host_collect):
+                raise AssertionError(f"{k} was not launched on path {path}")
     total = {k: sum(c[k] for c in launches.values())
-             for k in ("extd2_fwd", "extd2_tb")}
+             for k in ("extd2_fwd", "extd2_tb", *FRONT_ENTRIES)}
     log(f"kernel launches per counted path: {launches}; in all {total}")
     hit = max(int(main_prof["n_hit_reads"]), 1)
     if main_prof["n_fallback"] > MAX_FALLBACK * hit:
@@ -1528,6 +1632,7 @@ def main():
          "genome_launches": launches["genome"]["extd2_tb"],
          "genome_fc_sv_launches": launches["genome_fc_sv"]["extd2_tb"],
          "fc_sv_kernel_ms": sv["first"]["tb_kernel_ms"]},
+        *front_kernel_rows(launches),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -3,10 +3,10 @@
 A second package beside ``pansvr_tpu``: the same stages (anchor
 reference, RdBG index, signal extraction, seed -> chain -> banded
 dual-affine DP realignment, per-SV assembly and VCF, the de novo caller
-and the toolbox), with the device stages written in PyTorch and the two
-DP kernels (extd2 forward sweep and traceback) written by hand in CUDA
-C++ for Hopper (``csrc/``); the realigner and fc_sv's contig DP launch
-them. The NumPy/C++ host modules are its own copies of ``pansvr_tpu``'s,
+and the toolbox), with the device stages written in PyTorch and, for a
+card, by hand in CUDA C++ for Hopper (``csrc/``): the two DP kernels
+(extd2 forward sweep and traceback), which the realigner and fc_sv's
+contig DP launch, and the realigner's front, chain, collect and DP glue. The NumPy/C++ host modules are its own copies of ``pansvr_tpu``'s,
 at the same relative paths; it imports neither JAX nor ``pansvr_tpu``.
 
   ops/extd2.py          scoring parameters, size plan, CIGAR decode
@@ -15,6 +15,7 @@ at the same relative paths; it imports neither JAX nor ``pansvr_tpu``.
   ops/seeding.py        k-mer probe, MEM extension, merge + expand
   ops/chain.py          SDP chaining + chain extraction
   ops/collect.py        device collect (select_and_paths)
+  ops/front_cuda.py     front, chain, collect, DP glue: the card's kernels
   index/device.py       RdBG index -> device tensors
   align/engine.py       batched fc_aln engine (one device)
   assembly/sv_call.py   fc_sv: assembly, ContigDpBatcher, verdicts

@@ -106,6 +106,9 @@ def _bind(lib) -> None:
     lib.pansvr_extd2_tb.argtypes = [P] * 7 + [I] * 5 + [P]
     lib.pansvr_cuda_error_string.restype = ctypes.c_char_p
     lib.pansvr_cuda_error_string.argtypes = [I]
+    from .ops.front_cuda import bind
+
+    bind(lib)
 
 
 def load_kernels():

@@ -49,6 +49,7 @@ fan-out (parallel/aln_shard.py), one process and one engine a card.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import json
 import os
@@ -64,6 +65,7 @@ from ..index.builder import RdBGIndex
 from ..index.device import resolve_device, to_device, upload
 from ..ops.extd2 import Extd2Params
 from ..utils import dna, memory
+from ..utils.opkinds import OpKinds
 from ..utils.trace import Spans
 from . import native_glue
 from .host_align import (
@@ -222,11 +224,16 @@ def _log(msg: str) -> None:
 class AlignEngine:
     """Batched aligner on one device; produces
     SingleEndState lists compatible with align.host_align.PEScorer, or
-    encoded BAM record blobs with set_native_emit."""
+    encoded BAM record blobs with set_native_emit. With `op_kinds` the
+    ATen op kinds that the build and the graph warm-ups dispatch on the
+    device are recorded (utils/opkinds.py: `build_ops`, the graph
+    cache's `warmup_ops`, prof n_warmup_new_op_kinds); fc_aln --trace
+    asks for it."""
 
     def __init__(self, idx: RdBGIndex, params: AlignParams | None = None,
                  config: EngineConfig | None = None,
-                 ori_chrom_names: list[str] | None = None, device="cuda"):
+                 ori_chrom_names: list[str] | None = None, device="cuda",
+                 op_kinds: bool = False):
         # wall seconds per engine phase and event counts, across batches,
         # each phase a span of utils.trace (index_upload: the index's
         # source arrays read and its tables derived on the device, with
@@ -249,7 +256,14 @@ class AlignEngine:
         self.mem: dict[str, dict] = {}
         self.prof["rss_start_gib"] = memory.peak_rss_gib()
         self._mem_snapshot("start")
-        with self.tr.span("engine_build", "engine_build"):
+        # the ATen op kinds the build dispatches on the device, when
+        # asked: the graph warm-ups count those they add
+        self.build_ops = OpKinds(torch.device(device).type) if op_kinds \
+            else None
+        self.prof["n_warmup_new_op_kinds"] = 0.0
+        with self.tr.span("engine_build", "engine_build"), \
+                contextlib.nullcontext() if self.build_ops is None \
+                else self.build_ops:
             self._build(idx, params, config, ori_chrom_names, device)
         self.prof["rss_built_gib"] = memory.peak_rss_gib()
         self.prof["engine_rss_gib"] = self.prof["rss_built_gib"] \
@@ -302,7 +316,8 @@ class AlignEngine:
         self._fallback_warned = False
         # the per-batch programs as CUDA graphs (fuse_chain on a card);
         # None: enqueued op by op
-        self._programs = GraphCache(self.device, self.tr) \
+        self._programs = GraphCache(self.device, self.tr,
+                                    known_ops=self.build_ops) \
             if self.cfg.fuse_chain and self.device.type == "cuda" else None
         # the DP graphs' read-code input, one buffer per codes length
         self._codes_bufs: dict[int, torch.Tensor] = {}

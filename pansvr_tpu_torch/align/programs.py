@@ -11,14 +11,18 @@ as one program). Each is a pure function of its inputs here:
   dp_program(codes_flat, ref_words, meta, cq, ct, W, size, ...)
                                       -> {"ops": ..., "packed": ...}
 
-Run eagerly they enqueue their torch ops (and the K1/K2 launches) one by
-one; that is the engine's plain path (the CPU, and `fuse_chain=False`
-on a card). On a CUDA device the engine runs them through a GraphCache:
-each static shape set (the JAX programs' static_argnames) is captured
-into one CUDA graph once, after an eager warm-up on a side stream, and
-replayed after that, so a batch's front costs one graph launch where
-it cost thousands of kernel launches. Every graph of a cache allocates
-from one shared memory pool.
+Run eagerly they enqueue their torch ops one by one on the CPU (the
+plain path, front_program_plain, chain_program_plain, dp_program_plain,
+which run on any device); on a card they launch the hand-written
+kernels of ops/front_cuda.py (front, chain, collect, the DP's fill and
+packing) and K1/K2, and dispatch no ATen op but their outputs'
+allocation: that is `fuse_chain=False`. On a CUDA device the engine
+runs them through a GraphCache: each static shape set (the JAX
+programs' static_argnames) is captured into one CUDA graph once, after
+an eager warm-up on a side stream, and replayed after that, so a
+batch's front costs one graph launch where it cost dozens of kernel
+launches. Every graph of a cache allocates from one shared memory
+pool.
 
 A replay writes the same output tensors every time, so what the engine
 reads after a later replay of the same graph must be copied out first:
@@ -34,15 +38,17 @@ captured and counts them again at every replay.
 
 from __future__ import annotations
 
+import contextlib
 from collections import OrderedDict
 
 import torch
 
-from ..ops import extd2_cuda
+from ..ops import extd2_cuda, front_cuda
 from ..ops.chain import chain_batch, chain_extract_batch
 from ..ops.collect import select_and_paths
 from ..ops.extd2 import Extd2Params, plan
 from ..utils.memory import rss_growth
+from ..utils.opkinds import OpKinds
 from ..utils.trace import Spans
 from ..ops.seeding import (
     BUDGET_OVERFLOW,
@@ -142,7 +148,18 @@ def chain_program(es, is_str, rid, active, K: int, n_pad: int, NC: int,
                   NP: int) -> dict:
     """Chain at width K, then the chain extraction (host collect) or
     select_and_paths (device collect, NC > 0): the tensors the host
-    reads (the JAX _chain_fuse / _collect_fuse sections)."""
+    reads (the JAX _chain_fuse / _collect_fuse sections). On a card the
+    kernels of ops/front_cuda.py, elsewhere chain_program_plain."""
+    if es.read_begin.device.type == "cuda":
+        return front_cuda.chain_program(es, is_str, rid, active, K, n_pad,
+                                        NC, NP)
+    return chain_program_plain(es, is_str, rid, active, K, n_pad, NC, NP)
+
+
+def chain_program_plain(es, is_str, rid, active, K: int, n_pad: int,
+                        NC: int, NP: int) -> dict:
+    """chain_program as PyTorch ops, on any device: the specification
+    of its kernels."""
     cr, hit_idx, hit_score, hit_final = chain_at(es, is_str, K)
     if NC:
         co = select_and_paths(
@@ -160,7 +177,8 @@ def chain_program(es, is_str, rid, active, K: int, n_pad: int, NC: int,
 
 def front_program(didx, inputs: dict, shapes: dict) -> dict:
     """One batch's front, chain at the speculative width K and collect:
-    what _dispatch_front enqueues, minus its uploads and downloads.
+    what _dispatch_front enqueues, minus its uploads and downloads. On a
+    card the kernels of ops/front_cuda.py, elsewhere front_program_plain.
 
     inputs: words (B2, Wr) int32, lens2 (B2,) int32, mask2 (B2, S0)
     bool, is_str2 (B2,) bool, act_pad (n_pad,) bool (read when NC > 0).
@@ -173,6 +191,14 @@ def front_program(didx, inputs: dict, shapes: dict) -> dict:
     compacted host-collect front), "codes" the DP's flat read codes, and
     what a re-chain at full width reads: "es/<field>" (ES_FIELDS),
     "is_str" (per chain row), "rid" and "active" (absent when None)."""
+    if inputs["words"].device.type == "cuda":
+        return front_cuda.front_program(didx, inputs, shapes)
+    return front_program_plain(didx, inputs, shapes)
+
+
+def front_program_plain(didx, inputs: dict, shapes: dict) -> dict:
+    """front_program as PyTorch ops, on any device: the specification of
+    its kernels."""
     g = shapes.__getitem__
     words = inputs["words"]
     es, stats3, rid = front_seeds(
@@ -183,8 +209,8 @@ def front_program(didx, inputs: dict, shapes: dict) -> dict:
         B_full = words.shape[0]
         is_str = is_str[rid.to(_I64).clamp(0, B_full - 1)] & (rid < B_full)
     active = inputs["act_pad"] if g("NC") else None
-    chain = chain_program(es, is_str, rid, active, g("K"), g("n_pad"),
-                          g("NC"), g("NP"))
+    chain = chain_program_plain(es, is_str, rid, active, g("K"), g("n_pad"),
+                                g("NC"), g("NP"))
     out = {"chain/stats3": stats3}
     out.update((f"chain/{k}", v) for k, v in chain.items())
     out["codes"] = unpack_codes(words, g("L"))
@@ -256,9 +282,22 @@ def dp_program(codes_flat, ref_words, meta, cq: int, ct: int, W: int,
     """One DP chunk: the fill from the resident read codes and the packed
     reference by its (5, size) request metadata [qbase, qlen, ref start,
     tlen, rev], then K1 + K2 (the JAX _device_dp_pallas_meta). Returns
-    {"ops": (size, n_diag_pad) int8, "packed": (8, size) int32}."""
+    {"ops": (size, n_diag_pad) int8, "packed": (8, size) int32}. On a
+    card the fill and the packing are kernels too (ops/front_cuda.py)."""
     if meta.shape != (5, size):
         raise ValueError(f"DP metadata {tuple(meta.shape)} != (5, {size})")
+    if codes_flat.device.type == "cuda":
+        return front_cuda.dp_program(codes_flat, ref_words, meta, cq, ct, W,
+                                     size, params, tru_len)
+    return dp_program_plain(codes_flat, ref_words, meta, cq, ct, W, size,
+                            params, tru_len)
+
+
+def dp_program_plain(codes_flat, ref_words, meta, cq: int, ct: int, W: int,
+                     size: int, params: Extd2Params, tru_len: int) -> dict:
+    """dp_program's fill and packing as PyTorch ops around K1 and K2 (or
+    their plain versions off a card): the specification of its glue
+    kernels."""
     qc, ql, tc, tl = dp_fill_meta(codes_flat, ref_words, meta[0], meta[1],
                                   meta[2], meta[3], meta[4], tru_len, cq, ct)
     ops, packed = dp_chunk(qc, ql, tc, tl, params, W)
@@ -366,10 +405,17 @@ class GraphCache(ProgramCache):
     any thread, fails it), the cached blocks the warm-up left released
     in between; a replay runs on the current stream. A failed capture or
     replay raises. The process's VmRSS growth across the warm-ups and
-    across the captures adds to warmup_rss_gib and capture_rss_gib."""
+    across the captures adds to warmup_rss_gib and capture_rss_gib.
+    Given `known_ops` (the engine build's op kinds), `warmup_ops`
+    records the ATen op kinds the warm-ups dispatch on the card and prof
+    n_warmup_new_op_kinds counts those that `known_ops` lacks; without
+    it (None) nothing is recorded."""
 
-    def __init__(self, device, prof: dict, max_programs: int = MAX_GRAPHS):
+    def __init__(self, device, prof: dict, max_programs: int = MAX_GRAPHS,
+                 known_ops: OpKinds | None = None):
         super().__init__(device, prof, max_programs)
+        self.known_ops = known_ops
+        self.warmup_ops = None if known_ops is None else OpKinds("cuda")
         if self.device.type != "cuda":
             raise ValueError(f"CUDA graphs need a CUDA device, not "
                              f"{self.device}")
@@ -390,8 +436,13 @@ class GraphCache(ProgramCache):
             # first use (warmup_rss_gib)
             with rss_growth(prof, "warmup_rss_gib"), \
                     self.spans.span("graph_warmup", "graph_warmup_s"), \
-                    extd2_cuda.record_launches():
+                    extd2_cuda.record_launches(), \
+                    contextlib.nullcontext() if self.warmup_ops is None \
+                    else self.warmup_ops:
                 fn(inputs)
+            if self.warmup_ops is not None:
+                prof["n_warmup_new_op_kinds"] = float(len(
+                    self.warmup_ops.new_since(self.known_ops)))
             # the warm-up's blocks stay cached for the side stream, where
             # only later warm-ups would reuse them: released before the
             # capture, so the pool's temporaries do not come on top of

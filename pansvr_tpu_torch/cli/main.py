@@ -103,7 +103,7 @@ def run_fc_aln(args, config=None, tracer=None):
         if args.status_file else SignalStats(read_len=150, min_isize=200,
                                              max_isize=600)
     eng = AlignEngine(idx, config=config, ori_chrom_names=header.ref_names,
-                      device=args.device)
+                      device=args.device, op_kinds=bool(args.trace))
     tune_path = os.path.join(args.index_dir, "engine_tune.json") \
         if os.path.isdir(args.index_dir) else None
     if tune_path and eng.load_tuning(tune_path):
@@ -239,7 +239,27 @@ def _memory_lines(eng) -> list[str]:
                f"{p['warmup_rss_gib']:.3f} GiB, across the captures "
                f"{p['capture_rss_gib']:.3f} GiB "
                f"({int(p['n_graph_capture'])} captures)")
+    out.append(op_kinds_line(eng))
     return out
+
+
+def op_kinds_line(eng) -> str:
+    """The ATen op kinds the engine build and the graph warm-ups
+    dispatched on the device, and those the warm-ups added, each with
+    its first call's VmRSS growth (MiB), where the engine recorded
+    them (op_kinds)."""
+    if eng.build_ops is None:
+        return "ATen op kinds on the device: not recorded"
+    cache = eng._programs
+    warm = cache.warmup_ops if cache is not None else None
+    new = warm.new_since(eng.build_ops) if warm is not None else {}
+    names = ", ".join(f"{k} {1024 * v:.1f}" for k, v in
+                      sorted(new.items(), key=lambda x: -x[1]))
+    return (f"ATen op kinds on the device: engine build "
+            f"{len(eng.build_ops.kinds)}, graph warm-ups "
+            f"{len(warm.kinds) if warm is not None else 0}, new in the "
+            f"warm-ups {len(new)}" + (f" (first-use VmRSS growth, MiB): "
+                                      f"{names}" if new else ""))
 
 
 def _run_aln_stream(chunks_a, eng, pe, writer, ori_writer, header, filt,

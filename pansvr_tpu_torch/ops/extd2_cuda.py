@@ -42,6 +42,9 @@ from .extd2 import (
 # in all and by DP shape and problem count: {(kernel, Tmax, W, B): n}
 LAUNCHES = {"extd2_fwd": 0, "extd2_tb": 0}
 LAUNCHES_BY_SHAPE: dict = {}
+# launches of the front's entry points (ops/front_cuda.py), counted,
+# recorded and replayed like K1's and K2's: {entry point: n}
+FRONT_LAUNCHES: dict = {}
 # while a dict (keep_samples): the wrapper arguments of the last launch at
 # each (kernel, Tmax, W, B), for timing a pass's kernels alone afterwards
 SAMPLES: dict | None = None
@@ -65,6 +68,7 @@ def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
     LAUNCHES_BY_SHAPE.clear()
+    FRONT_LAUNCHES.clear()
 
 
 @contextlib.contextmanager
@@ -105,6 +109,9 @@ def _count(kernel: str, Tmax: int, W: int, B: int, args: tuple) -> None:
         # intermediate tensors, which its memory pool could reuse
         RECORD.append((kernel, Tmax, W, B,
                        args if SAMPLES is not None else None))
+        return
+    if kernel not in LAUNCHES:
+        FRONT_LAUNCHES[kernel] = FRONT_LAUNCHES.get(kernel, 0) + 1
         return
     LAUNCHES[kernel] += 1
     key = (kernel, Tmax, W, B)
@@ -447,14 +454,24 @@ def extd2_fwd(q, ql, t, tl, params: Extd2Params = Extd2Params(),
     check_window(params, t.shape[1], W)
     if not _on_cuda(q, ql, t, tl):
         return extd2_fwd_plain(q, ql, t, tl, params, W)
+    out, dmat = fwd_launch(q, ql, t, tl, params, W)
+    return Extd2Out(out[0], out[1], out[2], out[3], out[4], out[5], out[6],
+                    out[7], out[8] > 0, dmat)
+
+
+def fwd_launch(q, ql, t, tl, params: Extd2Params, W: int):
+    """One counted launch of the forward kernel on CUDA tensors (the
+    window checked by the caller): (out (9, B) int32 rows score, mqe,
+    mqe_t, mte, mte_q, max, max_q, max_t, zdropped, dmat). With q and t
+    uint8 and ql, tl int32, all contiguous, it dispatches no ATen op but
+    the outputs' allocation."""
     from .._build import check
 
     lib, args, out, dmat, _ = _fwd_args(q, ql, t, tl, params, W)
     with device_guard(q.device):
         check(lib, lib.pansvr_extd2_fwd(*args), "extd2_fwd launch")
     _count("extd2_fwd", t.shape[1], W, q.shape[0], (q, ql, t, tl, params, W))
-    return Extd2Out(out[0], out[1], out[2], out[3], out[4], out[5], out[6],
-                    out[7], out[8] > 0, dmat)
+    return out, dmat
 
 
 def fwd_raw_launcher(q, ql, t, tl, params: Extd2Params, W: int):
@@ -525,6 +542,16 @@ def extd2_traceback(dmat, ql, tl, i0, j0, params: Extd2Params, W: int,
     if not _on_cuda(dmat, ql, tl, i0, j0):
         return extd2_traceback_plain(dmat, ql, tl, i0, j0, params, W,
                                      n_diag_pad, Tmax)
+    ops, fin = tb_launch(dmat, ql, tl, i0, j0, params, W, n_diag_pad, Tmax)
+    return ops, fin[0], fin[1]
+
+
+def tb_launch(dmat, ql, tl, i0, j0, params: Extd2Params, W: int,
+              n_diag_pad: int, Tmax: int):
+    """One counted launch of the traceback kernel on CUDA tensors (the
+    window checked by the caller): (ops, fin (2, B) int32 final i, j).
+    With int32 contiguous inputs it dispatches no ATen op but the
+    outputs' allocation."""
     from .._build import check
 
     lib, args, ops, fin, _ = _tb_args(dmat, ql, tl, i0, j0, params, W,
@@ -533,7 +560,7 @@ def extd2_traceback(dmat, ql, tl, i0, j0, params: Extd2Params, W: int,
         check(lib, lib.pansvr_extd2_tb(*args), "extd2_traceback launch")
     _count("extd2_tb", Tmax, W, dmat.shape[0],
            (dmat, ql, tl, i0, j0, params, W, n_diag_pad, Tmax))
-    return ops, fin[0], fin[1]
+    return ops, fin
 
 
 def tb_raw_launcher(dmat, ql, tl, i0, j0, params: Extd2Params, W: int,

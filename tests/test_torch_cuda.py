@@ -11,7 +11,10 @@ engine against the CPU engine and the NumPy host aligner: its device
 collect, its depth-3 stream with the adaptive state after every batch,
 and a whole batch without a stream sync; the per-batch CUDA graphs
 (align/programs.py) against the same programs enqueued op by op; the
-index tables derived on the card against those derived on the CPU.
+front, chain, collect and DP glue kernels (csrc/front.cu) against the
+plain programs on the card, and the graph warm-ups' ATen op kinds
+against the engine build's; the index tables derived on the card
+against those derived on the CPU.
 """
 
 import numpy as np
@@ -469,6 +472,171 @@ def test_aln_fanout_workers_share_the_card(cuda_device, tmp_path):
                             status_file=w["status"], batch=1024)
     recs = world.bam_records(single)
     assert recs and world.bam_records(merged) == recs
+
+
+@pytest.fixture(scope="module")
+def front_batches():
+    """The index of a simulated SV world on the card, a prepared batch of
+    its 8,192 reads (n_pad 8,192, the cells' batch), STR repeats and
+    unrelated reads among them, and a batch with no k-mer hit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from pansvr_tpu_torch.align.engine import AlignEngine
+    from pansvr_tpu_torch.align.host_align import OriResult
+    from pansvr_tpu_torch.anchor.builder import AnchorConfig, build_anchor_contigs
+    from pansvr_tpu_torch.index.builder import build_index
+    from pansvr_tpu_torch.index.device import to_device
+    from pansvr_tpu_torch.utils.simulate import DictGenome, make_dataset
+
+    ds = make_dataset(seed=41, n_sv=8, n_pairs=4096,
+                      types=("DEL", "INS", "DUP"),
+                      chrom_lengths={"chr1": 200_000})
+    contigs = list(build_anchor_contigs(
+        ds.vcf_records, DictGenome(ds.genome), AnchorConfig()))
+    idx = build_index([(c.name, c.seq) for c in contigs], first_level_bases=11)
+    eng = AlignEngine(idx, ori_chrom_names=list(ds.genome), device="cpu")
+    rng = np.random.default_rng(41)
+    seqs = [s for r in ds.reads for s in (r.seq1, r.seq2)]
+    for i in range(5, len(seqs), 97):
+        seqs[i] = ("CA" * 40 + seqs[i])[:150]
+    for i in range(7, len(seqs), 89):
+        seqs[i] = "".join(rng.choice(list("ACGT"), 150))
+    noise = ["".join(rng.choice(list("ACGT"), 150)) for _ in range(300)]
+    preps = {name: eng._prep_batch(s, [OriResult(unmapped=True)] * len(s))
+             for name, s in (("reads", seqs), ("empty", noise))}
+    assert preps["reads"]["is_str2"].any()
+    return to_device(idx, "cuda"), preps
+
+
+# S, M, nf_mult, compacted rows, K, collect lane budgets (NC, NP) in
+# n_pad (None: the host collect)
+FRONT_CASES = {
+    "genome40k": (32, 32, 10, 0, 16, (1, 2)),
+    "chrom2k": (32, 32, 10, 0, 32, (4, 8)),
+    "compacted": (32, 32, 10, 12288, 32, (1, 2)),
+    "compaction_budget_overflow": (32, 32, 10, 4096, 16, (4, 8)),
+    "host_collect_k8": (32, 32, 10, 0, 8, None),
+    "host_collect_compacted": (32, 32, 10, 12288, 16, None),
+    "lane_overflow": (32, 32, 1, 0, 32, (1, 2)),
+    "widened": (64, 64, 20, 0, 32, (2, 4)),
+    "collect_overflow": (32, 32, 10, 0, 32, (1 / 16, 1 / 8)),
+    "empty": (32, 32, 10, 0, 8, (1, 2)),
+}
+
+
+def _assert_same(name, got, want):
+    """got == want bit for bit; else the first differing entries."""
+    assert got.dtype == want.dtype and got.shape == want.shape, \
+        (name, got.dtype, want.dtype, tuple(got.shape), tuple(want.shape))
+    bad = (got != want).nonzero()
+    assert not len(bad), (name, len(bad), [
+        (tuple(i.tolist()), got[tuple(i)].item(), want[tuple(i)].item())
+        for i in bad[:6]])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(FRONT_CASES))
+def test_front_program_kernels_match_plain(cuda_device, front_batches, case):
+    """front_program on the card (the kernels of csrc/front.cu) against
+    front_program_plain (PyTorch ops) on the card, every output bit for
+    bit at both cells' shape sets, compacted and not, over the lane,
+    compaction and collect budgets, and with no hit at all; then the
+    re-chain at full width the engine makes when K misses, on the
+    front's own seeds."""
+    from pansvr_tpu_torch.align import programs
+
+    didx, preps = front_batches
+    p = preps["empty" if case == "empty" else "reads"]
+    S, M, nf_mult, comp, K, budget = FRONT_CASES[case]
+    n_pad = p["n_pad"]
+    NC, NP = (0, 0) if budget is None else \
+        (int(budget[0] * n_pad), int(budget[1] * n_pad))
+    shapes = dict(L=p["L"], n_pad=n_pad, S0=p["S0"], S=S, M=M,
+                  n_ext=max(9, -(-(p["L"] - 20) // 16)), nf_mult=nf_mult,
+                  comp=comp, K=K, NC=NC, NP=NP)
+    inputs = {k: torch.from_numpy(p[k]).to(cuda_device)
+              for k in ("words", "lens2", "mask2", "is_str2", "act_pad")}
+    if case == "empty":
+        # unrelated reads with every seed position screened out
+        inputs["mask2"] = torch.zeros_like(inputs["mask2"])
+    want = programs.front_program_plain(didx, inputs, shapes)
+    got = programs.front_program(didx, inputs, shapes)
+    assert sorted(want) == sorted(got)
+    for k in want:
+        _assert_same(k, got[k], want[k])
+    _, es, is_str, rid, active = programs.front_parts(want)
+    K2 = min(S, 32)
+    w2 = programs.chain_program_plain(es, is_str, rid, active, K2, n_pad,
+                                      NC, NP)
+    g2 = programs.chain_program(es, is_str, rid, active, K2, n_pad, NC, NP)
+    for k in w2:
+        _assert_same(f"rechain {k}", g2[k], w2[k])
+    ov, dropped, seeds = want["chain/stats3"].cpu()
+    if case == "empty":
+        assert not seeds.any()
+        return
+    assert seeds.any()
+    flags = {"lane_overflow": lambda: (ov & (1 << 20)) != 0,
+             "compaction_budget_overflow": lambda: (ov & (1 << 21)) != 0,
+             "collect_overflow": lambda: want["chain/over"].cpu() != 0}
+    if case in flags:
+        assert flags[case]().any(), case
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cq,ct,W", [(96, 128, 128), (176, 256, 256)])
+def test_dp_program_kernels_match_plain(cuda_device, cq, ct, W):
+    """dp_program on the card (fill, K1, walk start, K2, packing, no ATen
+    op between them) against dp_program_plain (PyTorch glue around the
+    same K1 / K2) on the card, bit for bit: reversed rows, queries at
+    the codes' ends, targets before the reference's start and past its
+    end, and metadata read in place from a column slice."""
+    from pansvr_tpu_torch.align import programs
+
+    rng = np.random.default_rng(cq + W)
+    rows, L, size, n_words = 300, 256, 192, 2048
+    tru = n_words * 16 - 37
+    codes = torch.from_numpy(rng.integers(0, 4, rows * L).astype(np.uint8))
+    ref = torch.from_numpy(rng.integers(-2**31, 2**31 - 1, n_words,
+                                        dtype=np.int64).astype(np.int32))
+    qa = rng.integers(1, cq + 1, size)
+    meta = np.stack([rng.integers(-5, rows * L - qa + 3, size), qa,
+                     rng.integers(-60, tru + 30, size),
+                     rng.integers(1, ct + 1, size),
+                     rng.integers(0, 2, size)]).astype(np.int32)
+    wide = torch.from_numpy(np.concatenate([meta, meta], 1)).to(cuda_device)
+    dc, dr = codes.to(cuda_device), ref.to(cuda_device)
+    kw = dict(cq=cq, ct=ct, W=W, size=size, params=ALN, tru_len=tru)
+    for m in (wide[:, :size].contiguous(), wide[:, size:]):
+        want = programs.dp_program_plain(dc, dr, m, **kw)
+        got = programs.dp_program(dc, dr, m, **kw)
+        for k in ("ops", "packed"):
+            _assert_same(k, got[k], want[k])
+    assert (want["packed"][2] > 0).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("collect", ["device", "host"])
+def test_graph_warmups_dispatch_no_op_kind_the_build_did_not(
+        cuda_device, small_world, collect):
+    """A short stream with graphs: the warm-ups of its front and DP
+    captures dispatch no ATen op kind on the card that the engine build
+    did not (n_warmup_new_op_kinds 0), so they load no libtorch CUDA
+    module of their own."""
+    from pansvr_tpu_torch.align.engine import AlignEngine, EngineConfig
+    from pansvr_tpu_torch.align.host_align import OriResult
+
+    idx, names, seqs = small_world
+    eng = AlignEngine(idx, ori_chrom_names=names, device=cuda_device,
+                      config=EngineConfig(collect=collect), op_kinds=True)
+    batches = [(seqs[i : i + 48], [OriResult(unmapped=True)] * 48)
+               for i in range(0, 192, 48)]
+    assert len(list(eng.align_stream(iter(batches)))) == 4
+    assert eng.prof["n_graph_capture"] >= 2
+    warm = eng._programs.warmup_ops
+    assert warm.kinds and not warm.new_since(eng.build_ops), \
+        warm.new_since(eng.build_ops)
+    assert eng.prof["n_warmup_new_op_kinds"] == 0
 
 
 @pytest.mark.cuda
